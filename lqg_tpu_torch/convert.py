@@ -1,0 +1,44 @@
+"""Carry parameters from the JAX package across to the port.
+
+Specs cross as mappings of numpy arrays, e.g.
+``{k: np.asarray(v) for k, v in jax_spec._asdict().items()}``: numpy is the
+common ground, so nothing here imports JAX.  The ``zero_affine`` flag is set
+from the arrays' values.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from lqg_tpu_torch.config import resolve_device
+from lqg_tpu_torch.spec import LQGSpec, _AFFINE
+from lqg_tpu_torch.system import System
+
+_FIELDS = LQGSpec._fields[:12]
+
+
+def spec_from_numpy(fields: Mapping[str, np.ndarray], device=None,
+                    dtype=torch.float32) -> LQGSpec:
+    """An :class:`LQGSpec` from the 12 named arrays, with ``zero_affine``
+    set exactly when ``q, qf, P, r`` are all zero."""
+    missing = [k for k in _FIELDS if k not in fields]
+    if missing:
+        raise ValueError(f"spec fields missing: {missing}")
+    device = resolve_device(device)
+    arrays = {k: np.asarray(fields[k]) for k in _FIELDS}
+    return LQGSpec(**{k: torch.tensor(a, dtype=dtype, device=device)
+                      for k, a in arrays.items()},
+                   zero_affine=not any(arrays[k].any() for k in _AFFINE))
+
+
+def system_from_numpy(actor: Mapping[str, np.ndarray],
+                      dynamics: Mapping[str, np.ndarray],
+                      horizon: Optional[int] = None, device=None,
+                      dtype=torch.float32) -> System:
+    """A :class:`System` from the actor's and the dynamics' arrays."""
+    return System(actor=spec_from_numpy(actor, device, dtype),
+                  dynamics=spec_from_numpy(dynamics, device, dtype),
+                  horizon=horizon)

@@ -1,0 +1,79 @@
+"""Finite-horizon generalized LQR: Riccati backward recursion
+(port of :mod:`lqg_tpu.ops.riccati`).
+
+Batch-first over leading axes, Cholesky solves on the control Hessian, and
+the three guards of :func:`lqg_tpu_torch.ops.linalg.regularize_spd`.  The
+time loop is a Python loop of batched tensor ops; on the card the fused
+gains kernel (:mod:`lqg_tpu_torch.ops.kernels.gains`) replaces it where the
+spec fits.  ``backward_multiplicative`` (signal-dependent noise) is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from lqg_tpu_torch.spec import LQGSpec
+from lqg_tpu_torch.ops.linalg import mT, cho_solve, regularize_spd, symmetrize
+
+
+class Gains(NamedTuple):
+    """Time-stacked LQR feedback gains: ``u_t = L_t x_t + l_t``."""
+
+    L: torch.Tensor  # (T, m, n) feedback gain
+    l: torch.Tensor  # (T, m)    feedforward term
+    H: Optional[torch.Tensor] = None  # (T, m, m) control Hessian
+
+
+def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``M^T v`` over the trailing axes: ``(..., a, b), (..., a) -> (..., b)``."""
+    return (mT(M) @ v[..., None])[..., 0]
+
+
+def _step(S, s, Q, q, P, R, r, A, B, *, eps: float, regularize: str):
+    SA = S @ A
+    H = symmetrize(R + mT(B) @ (S @ B))
+    G = P + mT(B) @ SA
+    g = r + _mv(B, s)
+
+    Ht = regularize_spd(H, eps, regularize)
+    chol = torch.linalg.cholesky(Ht)
+    L = -cho_solve(chol, G)
+    l = -cho_solve(chol, g)
+
+    # value-function update with the unregularized H (reference lqr.py:33-34)
+    HL = H @ L
+    S_new = Q + mT(A) @ SA + mT(L) @ HL + mT(L) @ G + mT(G) @ L
+    s_new = q + _mv(A, s) + _mv(G, l) + _mv(HL, l) + _mv(L, g)
+    return symmetrize(S_new), s_new, (L, l, Ht)
+
+
+def backward(spec: LQGSpec, horizon: Optional[int] = None, eps: float = 1e-8,
+             regularize: str = "jitter") -> Gains:
+    """Run the Riccati backward pass; returns time-leading :class:`Gains`.
+
+    ``spec`` is stacked (time axis at ``-3``) or stationary (``horizon``
+    required).  Outputs have shape ``(T, batch..., m, n)``.
+    """
+    stationary = spec.A.dim() == spec.Qf.dim()
+    if stationary:
+        if horizon is None:
+            raise ValueError("stationary spec requires explicit horizon")
+        T = horizon
+        at = lambda x, t: x
+    else:
+        T = spec.A.shape[-3]
+        at = lambda x, t: x[..., t, :, :]
+    atv = (lambda x, t: x) if stationary else (lambda x, t: x[..., t, :])
+
+    S, s = spec.Qf, spec.qf
+    outs = [None] * T
+    for t in range(T - 1, -1, -1):
+        S, s, outs[t] = _step(
+            S, s, at(spec.Q, t), atv(spec.q, t), at(spec.P, t), at(spec.R, t),
+            atv(spec.r, t), at(spec.A, t), at(spec.B, t),
+            eps=eps, regularize=regularize)
+    L, l, H = (torch.stack(x) for x in zip(*outs))
+    return Gains(L=L, l=l, H=H)

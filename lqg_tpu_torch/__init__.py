@@ -6,14 +6,17 @@ hand-written CUDA kernels for Hopper (``lqg_tpu_torch/csrc``), each with a
 plain PyTorch version beside it.  Entry points work on the card unless the
 caller names another device.
 
-This slice covers the main path of the tracking models:
-``BoundedActor(...)`` -> ``simulate`` -> ``log_likelihood``.
+The slices so far cover the main path of the tracking models:
+``BoundedActor(...)`` -> ``simulate`` -> ``log_likelihood``, and its
+gradient up to the potential of the (hierarchical) inference models in
+:mod:`lqg_tpu_torch.infer` (``shared_params_lqg_model(...).potential``).
 """
 
 __version__ = "0.1.0"
 
 from lqg_tpu_torch.spec import LQGSpec
 from lqg_tpu_torch.system import LQG, Actor, Dynamics, System, LQGDistribution
+from lqg_tpu_torch import infer
 
 __all__ = [
     "LQG",
@@ -22,5 +25,6 @@ __all__ = [
     "System",
     "LQGSpec",
     "LQGDistribution",
+    "infer",
     "__version__",
 ]

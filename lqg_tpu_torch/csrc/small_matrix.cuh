@@ -46,6 +46,12 @@ __device__ __forceinline__ void store(float* __restrict__ dst,
   for (int i = 0; i < S; ++i) dst[i] = src[i];
 }
 
+template <int S>
+__device__ __forceinline__ void fill(float* dst, float value) {
+#pragma unroll
+  for (int i = 0; i < S; ++i) dst[i] = value;
+}
+
 // Closed-form inverse of a symmetric PD matrix with eps on the determinant
 // (lqg_tpu/ops/pallas/gains.py:_sym_inv); returns the determinant without
 // eps (lqg_tpu/ops/pallas/likelihood.py:_sym_inv_det).

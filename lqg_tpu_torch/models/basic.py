@@ -22,6 +22,17 @@ def _per_dim_blockdiag(block, dim: int) -> torch.Tensor:
     return torch.block_diag(*([block] * dim))
 
 
+def _diag_tile(values, dim: int) -> torch.Tensor:
+    """``diag(tile([v_0, v_1, ...], dim))`` over the values' common batch
+    shape."""
+    row = torch.stack(torch.broadcast_tensors(*values), -1)
+    return torch.diag_embed(torch.cat([row] * dim, -1))
+
+
+def _common_batch(*params: torch.Tensor) -> torch.Size:
+    return torch.broadcast_shapes(*(p.shape for p in params))
+
+
 def tracking_spec(dim, process_noise, action_variability, sigma_target,
                   sigma_cursor, action_cost, dt, *, device=None,
                   dtype=torch.float32):
@@ -35,7 +46,7 @@ def tracking_spec(dim, process_noise, action_variability, sigma_target,
     (pn, av, st, sc, c, dt), device = as_tensors(
         (process_noise, action_variability, sigma_target, sigma_cursor,
          action_cost, dt), device, dtype)
-    batch = torch.broadcast_shapes(*(p.shape for p in (pn, av, st, sc, c, dt)))
+    batch = _common_batch(pn, av, st, sc, c, dt)
     d = 2 * dim
     kw = dict(dtype=dtype, device=device)
     ex = lambda M: M.expand(batch + M.shape[-2:])
@@ -43,14 +54,11 @@ def tracking_spec(dim, process_noise, action_variability, sigma_target,
     B = ex(dt[..., None, None] * _per_dim_blockdiag(
         torch.tensor([[0.0], [1.0]], **kw), dim))
     F = ex(torch.eye(d, **kw))
-    # diag(tile([a, b], dim)) over the batch
-    diag = lambda a, b: ex(torch.diag_embed(torch.cat(
-        [torch.stack(torch.broadcast_tensors(a, b), -1)] * dim, -1)))
     Q = ex(_per_dim_blockdiag(torch.tensor([[1.0, -1.0], [-1.0, 1.0]], **kw),
                               dim))
     R = ex(torch.eye(dim, **kw) * c[..., None, None])
-    return stationary_spec(A=A, B=B, F=F, V=diag(pn, av), W=diag(st, sc),
-                           Q=Q, R=R)
+    return stationary_spec(A=A, B=B, F=F, V=ex(_diag_tile((pn, av), dim)),
+                           W=ex(_diag_tile((st, sc), dim)), Q=Q, R=R)
 
 
 class TrackingTask(System):
@@ -95,7 +103,8 @@ class OptimalActor(TrackingTask):
 
 class RelativeObservationBoundedActor(System):
     """Observes only the (target - cursor) difference, one sensory noise
-    (reference ``tracking/basic.py:90-124``)."""
+    (reference ``tracking/basic.py:90-124``).  Scalar parameters broadcast
+    over leading batch axes, as in :func:`tracking_spec`."""
 
     def __init__(self, dim=1, process_noise=1.0, action_variability=0.5,
                  sigma=6.0, action_cost=1.0, dt=1.0 / 60.0, T=1000, *,
@@ -105,15 +114,18 @@ class RelativeObservationBoundedActor(System):
         (pn, av, s, c, dt), device = as_tensors(
             (process_noise, action_variability, sigma, action_cost, dt),
             device, dtype)
+        batch = _common_batch(pn, av, s, c, dt)
         kw = dict(dtype=dtype, device=device)
+        ex = lambda M: M.expand(batch + M.shape[-2:])
         d = 2 * dim
-        A = torch.eye(d, **kw)
-        B = dt * _per_dim_blockdiag(torch.tensor([[0.0], [1.0]], **kw), dim)
-        F = _per_dim_blockdiag(torch.tensor([[1.0, -1.0]], **kw), dim)
-        V = torch.diag(torch.stack([pn, av]).repeat(dim))
-        W = torch.diag(s[None].repeat(dim))
-        Q = _per_dim_blockdiag(torch.tensor([[1.0, -1.0], [-1.0, 1.0]], **kw),
-                               dim)
-        R = torch.eye(dim, **kw) * c
+        A = ex(torch.eye(d, **kw))
+        B = ex(dt[..., None, None] * _per_dim_blockdiag(
+            torch.tensor([[0.0], [1.0]], **kw), dim))
+        F = ex(_per_dim_blockdiag(torch.tensor([[1.0, -1.0]], **kw), dim))
+        V = ex(_diag_tile((pn, av), dim))
+        W = ex(_diag_tile((s,), dim))
+        Q = ex(_per_dim_blockdiag(
+            torch.tensor([[1.0, -1.0], [-1.0, 1.0]], **kw), dim))
+        R = ex(torch.eye(dim, **kw) * c[..., None, None])
         spec = stationary_spec(A=A, B=B, F=F, V=V, W=W, Q=Q, R=R)
         super().__init__(actor=spec, dynamics=spec, horizon=T)

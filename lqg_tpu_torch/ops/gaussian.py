@@ -28,8 +28,9 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 
 class JointSystem(NamedTuple):
-    """Joint (state, belief) linear system, time-leading: ``F (T, j, j)``
-    transition, ``G (T, j, c)`` noise scale (covariance ``G G^T``)."""
+    """Joint (state, belief) linear system, time-leading: ``F (T, ..., j,
+    j)`` transition, ``G (T, ..., j, c)`` noise scale (covariance ``G
+    G^T``), with the specs' parameter-set axes after the time axis."""
 
     F: torch.Tensor
     G: torch.Tensor
@@ -45,30 +46,39 @@ def joint_system(dynamics: LQGSpec, actor: LQGSpec, L: torch.Tensor,
              [K F_d V_d,   K W_d]]
 
     ``L``/``K`` are time-leading ``(T, ...)``; spec matrices may be
-    stationary (unbatched) or stacked.
+    stationary or stacked, either with leading parameter-set axes ``(P,
+    ...)``.  A spec is stacked when its ``A`` has one more axis than its
+    terminal cost ``Qf`` (as ``System`` decides), so a batched stationary
+    ``A (P, n, n)`` is not mistaken for ``P`` time steps.
     """
 
-    def tl(x):
-        return x[None] if x.dim() == 2 else torch.movedim(x, -3, 0)
+    def tl_of(spec):
+        if spec.A.dim() == spec.Qf.dim():  # stationary: one step for all t
+            return lambda x: x[None]
+        return lambda x: torch.movedim(x, -3, 0)
 
-    def bT(x, shape):
-        return x.expand((horizon,) + shape)
-
+    tl = tl_of(dynamics)
     A_d, B_d, F_d, V_d, W_d = (tl(dynamics.A), tl(dynamics.B), tl(dynamics.F),
                                tl(dynamics.V), tl(dynamics.W))
+    tl = tl_of(actor)
     A_a, B_a, F_a = tl(actor.A), tl(actor.B), tl(actor.F)
 
     BdL = B_d @ L
     KFd = K @ F_d
-    top = torch.cat([bT(A_d, A_d.shape[1:]), bT(BdL, BdL.shape[1:])], dim=-1)
     bottom_left = KFd @ A_d
     bottom_right = (A_a + B_a @ L - K @ (F_a @ A_a)
                     + (K @ (F_d @ B_d - F_a @ B_a)) @ L)
-    bottom = torch.cat([bT(bottom_left, bottom_left.shape[1:]),
-                        bT(bottom_right, bottom_right.shape[1:])], dim=-1)
-    Fj = torch.cat([top, bottom], dim=-2)
+    blocks = (A_d, BdL, bottom_left, bottom_right)
+    lead = (horizon,) + torch.broadcast_shapes(
+        *(x.shape[1:-2] for x in blocks + (V_d, K)))
 
-    lead = Fj.shape[:-2]
+    def bT(x):
+        return x.expand(lead + x.shape[-2:])
+
+    A_d, BdL, bottom_left, bottom_right = (bT(x) for x in blocks)
+    Fj = torch.cat([torch.cat([A_d, BdL], dim=-1),
+                    torch.cat([bottom_left, bottom_right], dim=-1)], dim=-2)
+
     xdim, wcols = A_d.shape[-1], W_d.shape[-1]
     zeros = Fj.new_zeros(lead + (xdim, wcols))
     g_top = torch.cat([V_d.expand(lead + V_d.shape[-2:]), zeros], dim=-1)
@@ -83,10 +93,11 @@ def joint_system(dynamics: LQGSpec, actor: LQGSpec, L: torch.Tensor,
 class ConditionalKernel(NamedTuple):
     """Data-independent part of the conditioned/marginalized recursion.
 
-    ``M (T, j, j)`` mean transition ``mu_{t+1} = M_t mu_t + J_t x_t``;
-    ``J (T, j, d)`` data gain; ``chol (T+1, d, d)`` Cholesky factors of
-    ``Sigma_t[:d, :d]`` for ``t = 0..T``; ``logdet_score`` the scalar
-    ``sum_{t=1..T} log det(2 pi Sigma_t[:d, :d])``.
+    ``M (T, ..., j, j)`` mean transition ``mu_{t+1} = M_t mu_t + J_t
+    x_t``; ``J (T, ..., j, d)`` data gain; ``chol (T+1, ..., d, d)``
+    Cholesky factors of ``Sigma_t[:d, :d]`` for ``t = 0..T``;
+    ``logdet_score (...)``, ``sum_{t=1..T} log det(2 pi Sigma_t[:d, :d])``
+    per parameter set.
     """
 
     M: torch.Tensor
@@ -144,12 +155,18 @@ def _init_mean(x0: torch.Tensor, joint_dim: int) -> torch.Tensor:
     return nnf.pad(x0, (0, joint_dim - x0.shape[-1]))
 
 
+def _trials_last(x: torch.Tensor) -> torch.Tensor:
+    """``x (..., n, T+1, d)`` as ``(T+1, ..., d, n)``: time leading, trials
+    in the trailing matrix axis."""
+    return torch.movedim(torch.movedim(x, -3, -1), -3, 0)
+
+
 def _mean_scan(kernel: ConditionalKernel, x: torch.Tensor) -> torch.Tensor:
-    """``mu_t`` for ``t = 1..T`` with trials in the trailing axis:
-    ``(T, j, n)``."""
+    """``mu_t`` for ``t = 1..T`` of trajectories ``x (..., n, T+1, d)``,
+    with trials in the trailing axis: ``(T, ..., j, n)``."""
     M, J = kernel.M, kernel.J
-    X = torch.movedim(x, 0, -1)  # (T+1, d, n)
-    MU = _init_mean(x[:, 0, :], M.shape[-1]).T  # (j, n)
+    X = _trials_last(x)  # (T+1, ..., d, n)
+    MU = mT(_init_mean(x[..., 0, :], M.shape[-1]))  # (..., j, n)
     mus = []
     for t in range(M.shape[0]):
         MU = M[t] @ MU + J[t] @ X[t]
@@ -159,16 +176,18 @@ def _mean_scan(kernel: ConditionalKernel, x: torch.Tensor) -> torch.Tensor:
 
 def trial_log_likelihood(kernel: ConditionalKernel,
                          x: torch.Tensor) -> torch.Tensor:
-    """Per-trial log likelihood ``(n,)`` of ``x[:, 1:]`` for observed
-    trajectories ``x (n, T+1, d)``, summed over time."""
+    """Per-trial log likelihood of ``x[..., 1:, :]`` for observed
+    trajectories ``x (n, T+1, d)``, summed over time: ``(n,)``.  A kernel
+    of ``P`` parameter sets takes ``x (P, n, T+1, d)`` and gives ``(P,
+    n)``."""
     d = x.shape[-1]
-    X = torch.movedim(x, 0, -1)  # (T+1, d, n)
-    preds = _mean_scan(kernel, x)[:, :d]  # (T, d, n)
+    X = _trials_last(x)  # (T+1, ..., d, n)
+    preds = _mean_scan(kernel, x)[..., :d, :]  # (T, ..., d, n)
     e = X[1:] - preds
     w = torch.linalg.solve_triangular(kernel.chol[1:], e, upper=False)
     # compensated over T: per-trial quads are O(T d) sums
-    quad = kahan_sum((w * w).sum(1), axis=0)  # (n,)
-    return -0.5 * (quad + kernel.logdet_score)
+    quad = kahan_sum((w * w).sum(-2), axis=0)  # (..., n)
+    return -0.5 * (quad + kernel.logdet_score[..., None])
 
 
 def conditional_sigma(joint: JointSystem, obs_dim: int,

@@ -1,7 +1,11 @@
-"""K1: fused Riccati backward + Kalman forward gains on the card.
+"""K1 and K2: fused Riccati backward + Kalman forward gains on the card, and
+their analytic adjoint.
 
-Replaces ``lqg_tpu/ops/pallas/gains.py:_gains_merged_kernel`` (via its
-wrapper ``fused_gains``).  Kernel source: ``lqg_tpu_torch/csrc/gains.cu``.
+K1 replaces ``lqg_tpu/ops/pallas/gains.py:_gains_merged_kernel`` (via its
+wrapper ``fused_gains``); K2 replaces ``gains.py:_gains_adjoint_kernel`` (via
+``_gains_adjoint_call``).  :func:`fused_gains` joins them in a
+``torch.autograd.Function``, the counterpart of the JAX ``custom_vjp``
+``gains_fused``.  Kernel source: ``lqg_tpu_torch/csrc/gains.cu``.
 
 What it computes: for a batch of stationary specs with structurally zero
 affine costs, the control gains ``L_t`` and Hessians ``H_t`` of the Riccati
@@ -20,9 +24,25 @@ T works, a prime one too) and writes each step's gains straight to their
 final slots, so the chain is the only cost; covering that latency with
 more independent work per SM is left for a later change.
 
-The plain PyTorch version :func:`fused_gains_reference` repeats the same
-arithmetic (same closed-form inverses, same ``eps``, same order of the
-additions); the wrapper takes it only for tensors on the CPU.
+K2 (:func:`fused_gains_vjp`) runs both adjoint recursions in one time loop
+per particle, reading the carries K1 stores on the gradient path (``S_t``
+and ``P_t``, ``(T, B, n, n)``) and recomputing every other intermediate with
+K1's arithmetic; it is latency-bound for the same reason.  Unlike the JAX
+package (``gains.py:785``) the backward does not re-run K1: the forward
+writes the stores once, only when an input needs a gradient.  Also unlike
+it, K2 keeps the Kalman adjoint carry in the symmetric gauge each step, as
+autograd through the scan twin (whose ``symmetrize`` projects it) does: the
+hand-derived Kalman step (``gains.py:266-274``) assumes a symmetric carry,
+and unprojected the carry can grow (a step map of spectral radius above
+1.05 for a bounded actor with ``action_cost=0.01``,
+``action_variability=0.1``, ``sigma_target=2``, ``sigma_cursor=0.5``:
+beyond 1e21 over T=1008), which leaves the cotangents of ``F`` and ``A``
+to cancellation between huge terms.
+
+The plain PyTorch versions :func:`fused_gains_reference` and
+:func:`fused_gains_vjp_reference` repeat the same arithmetic (same
+closed-form inverses, same ``eps``, same order of the additions); the
+wrappers take them only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -30,6 +50,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from lqg_tpu_torch.spec import LQGSpec
 from lqg_tpu_torch.ops.linalg import mT
@@ -90,16 +111,16 @@ def _sym_inv_det(S: torch.Tensor):
     raise ValueError(f"closed-form inverse supports k <= 4, got {k}")
 
 
-def fused_gains_reference(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int):
-    """Plain PyTorch version of K1: batched over particles, a Python loop
-    over T.  Same contract as :func:`fused_gains`, any float dtype."""
-    A, Bm, Q, R, F = spec.A, spec.B, spec.Q, spec.R, spec.F
-    VV = spec.V @ mT(spec.V)
-    WW = spec.W @ mT(spec.W)
+def _gains_reference(A, Bm, Q, R, Qf, F, VV, WW, Sigma0, horizon: int,
+                     stores: bool = False):
+    """The plain K1 on its inputs ``(B, ., .)`` (noise covariances ``VV``,
+    ``WW``); with ``stores`` also the carries ``S`` and ``P``."""
     At, Bt, Ft = mT(A), mT(Bm), mT(F)
-    S, P = spec.Qf, Sigma0
-    Ls, Hs, Ks = [], [], []
+    S, P = Qf, Sigma0
+    Ls, Hs, Ks, Ss, Ps = [], [], [], [], []
     for _ in range(horizon):
+        Ss.append(S)
+        Ps.append(P)
         # Riccati backward (reverse-time slot)
         SB = S @ Bm
         SA = S @ A
@@ -118,7 +139,78 @@ def fused_gains_reference(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int):
         K = PFt @ _sym_inv_det(Gk)[0]
         P = P - K @ mT(PFt)
         Ks.append(K)
-    return torch.stack(Ls[::-1]), torch.stack(Hs[::-1]), torch.stack(Ks)
+    out = torch.stack(Ls[::-1]), torch.stack(Hs[::-1]), torch.stack(Ks)
+    if stores:
+        out += (torch.stack(Ss[::-1]), torch.stack(Ps))
+    return out
+
+
+def fused_gains_reference(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int,
+                          stores: bool = False):
+    """Plain PyTorch version of K1: batched over particles, a Python loop
+    over T.  Same contract as :func:`fused_gains`, any float dtype; with
+    ``stores`` it also returns K1's stores ``(S, P)``, each ``(T, B, n,
+    n)``."""
+    return _gains_reference(spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F,
+                            spec.V @ mT(spec.V), spec.W @ mT(spec.W), Sigma0,
+                            horizon, stores)
+
+
+def fused_gains_vjp_reference(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
+                              Kbar):
+    """Plain PyTorch version of K2: batched over particles, a Python loop
+    over T.  Same contract as :func:`fused_gains_vjp`, any float dtype."""
+    At, Bt, Ft = mT(A), mT(Bm), mT(F)
+    T = S_st.shape[0]
+    zero = torch.zeros_like
+    Sb, Pb = zero(S_st[0]), zero(P_st[0])
+    aA, aB, aQ, aR = zero(A), zero(Bm), zero(S_st[0]), zero(R)
+    aF, aV, aW = zero(F), zero(VV), zero(WW)
+    for i in range(T):
+        # Riccati adjoint (ascending slot i)
+        S = S_st[i]
+        SB = S @ Bm
+        SA = S @ A
+        H = R + Bt @ SB
+        G = Bt @ SA
+        Hinv = _sym_inv_det(H)[0]
+        L = -(Hinv @ G)
+        HL = H @ L
+        Sbt = mT(Sb)
+        LSb = L @ Sb
+        Lb = Lbar[i] + (HL @ Sbt + (G @ Sbt + (G @ Sb + H @ LSb)))
+        Hb = Hbar[i] + L @ (Sb @ mT(L))
+        HinvLb = Hinv @ Lb
+        Hb = Hb + HinvLb @ (mT(G) @ Hinv)
+        Gbar = (LSb + L @ Sbt) - HinvLb
+        aR = aR + Hb
+        aQ = aQ + Sb
+        SBbar = Bm @ Hb
+        SAbar = A @ Sb + Bm @ Gbar
+        aA = aA + (SA @ Sbt + S @ SAbar)
+        aB = aB + (SA @ mT(Gbar) + (SB @ mT(Hb) + S @ SBbar))
+        Sb = SBbar @ Bt + SAbar @ At
+        # Kalman adjoint (descending slot T-1-i); the carry in the
+        # symmetric gauge, as the scan twin's symmetrize() projects it
+        Pb = _sym(Pb)
+        P = P_st[T - 1 - i]
+        Pp = A @ (P @ At) + VV
+        PFt = Pp @ Ft
+        Gki = _sym_inv_det(F @ PFt + WW)[0]
+        K = PFt @ Gki
+        Kb = Kbar[T - 1 - i] - Pb @ PFt
+        KbGki = Kb @ Gki
+        PFtb = -(mT(Pb) @ K) + KbGki
+        Gkbar = -(Gki @ (mT(PFt) @ KbGki))
+        aW = aW + Gkbar
+        aF = aF + Gkbar @ mT(PFt)
+        PFtb = PFtb + Ft @ Gkbar
+        aF = aF + mT(PFtb) @ Pp
+        Ppbar = Pb + PFtb @ F
+        aV = aV + Ppbar
+        aA = aA + (Ppbar + mT(Ppbar)) @ (A @ P)
+        Pb = At @ (Ppbar @ A)
+    return aA, aB, aQ, aR, Sb, aF, aV, aW, Pb
 
 
 def fused_gains_available(spec: LQGSpec) -> bool:
@@ -133,15 +225,123 @@ def fused_gains_available(spec: LQGSpec) -> bool:
 
 def _lib():
     lib = nvcc.load("gains")
-    lib.lqg_gains_fwd.argtypes = ([ctypes.c_void_p] * 12
+    lib.lqg_gains_fwd.argtypes = ([ctypes.c_void_p] * 14
                                   + [ctypes.c_int] * 5
                                   + [ctypes.c_float, ctypes.c_void_p])
     lib.lqg_gains_fwd.restype = ctypes.c_int
+    lib.lqg_gains_bwd.argtypes = ([ctypes.c_void_p] * 20
+                                  + [ctypes.c_int] * 5
+                                  + [ctypes.c_float, ctypes.c_void_p])
+    lib.lqg_gains_bwd.restype = ctypes.c_int
     return lib
 
 
+def _on_card(tensors, what: str) -> bool:
+    """True for CUDA float32 tensors on one card, False for CPU tensors;
+    raises on anything else."""
+    device = tensors[0].device
+    if any(x.device != device for x in tensors):
+        raise ValueError(f"{what}: inputs must lie on one device")
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise TypeError(f"{what} kernel takes float32 tensors")
+    return True
+
+
+def _dims(A, Bm, F):
+    return A.shape[-1], Bm.shape[-1], F.shape[-2]
+
+
+def gains_fwd(A, Bm, Q, R, Qf, F, VV, WW, Sigma0, horizon: int,
+              stores: bool = False):
+    """K1 on its inputs, each ``(B, ., .)``: ``(L, H, K)`` and, with
+    ``stores``, the carries ``(S, P)`` K2 reads.  A CUDA tensor launches
+    the kernel (float32) or raises; a CPU tensor takes the plain version."""
+    ins = (A, Bm, Q, R, Qf, F, VV, WW, Sigma0)
+    if not _on_card(ins, "fused gains"):
+        return _gains_reference(*ins, horizon, stores)
+    n, m, p = _dims(A, Bm, F)
+    Bn, device = A.shape[0], A.device
+    ins = [x.contiguous() for x in ins]
+    new = lambda *shape: torch.empty((horizon, Bn) + shape,
+                                     dtype=torch.float32, device=device)
+    out = (new(m, n), new(m, m), new(n, p))
+    if stores:
+        out += (new(n, n), new(n, n))
+    st = [x.data_ptr() for x in out[3:]] if stores else [None, None]
+    status = _lib().lqg_gains_fwd(
+        *(x.data_ptr() for x in ins), *(x.data_ptr() for x in out[:3]), *st,
+        n, m, p, Bn, horizon, EPS,
+        torch.cuda.current_stream(device).cuda_stream)
+    nvcc.check(status, "gains_fwd")
+    fused_gains.launches += 1
+    return out
+
+
+def fused_gains_vjp(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar):
+    """K2: the cotangents of K1's inputs from those of its outputs.
+
+    Args:
+        A, Bm, R, F, VV, WW: K1's inputs, each ``(B, ., .)``.
+        S_st, P_st: K1's stores, ``(T, B, n, n)``.
+        Lbar, Hbar, Kbar: cotangents of ``L, H, K``, shaped like them.
+
+    Returns the raw cotangents ``(Abar, Bbar, Qbar, Rbar, Qfbar, Fbar,
+    VVbar, WWbar, Sigma0bar)``, each ``(B, ., .)``.  A CUDA tensor launches
+    the kernel (float32) or raises; a CPU tensor takes the plain version.
+    """
+    ins = (A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar)
+    if not _on_card(ins, "fused gains adjoint"):
+        return fused_gains_vjp_reference(*ins)
+    n, m, p = _dims(A, Bm, F)
+    T, Bn = S_st.shape[:2]
+    ins = [x.contiguous() for x in ins]
+    out = [torch.empty((Bn,) + shape, dtype=torch.float32, device=A.device)
+           for shape in ((n, n), (n, m), (n, n), (m, m), (n, n), (p, n),
+                         (n, n), (p, p), (n, n))]
+    status = _lib().lqg_gains_bwd(
+        *(x.data_ptr() for x in ins), *(x.data_ptr() for x in out),
+        n, m, p, Bn, T, EPS, torch.cuda.current_stream(A.device).cuda_stream)
+    nvcc.check(status, "gains_bwd")
+    fused_gains_vjp.launches += 1
+    return tuple(out)
+
+
+class _FusedGains(torch.autograd.Function):
+    """K1 forward, K2 backward; every input is ``(B, ., .)``."""
+
+    @staticmethod
+    def forward(ctx, A, Bm, Q, R, Qf, F, V, W, Sigma0, horizon):
+        VV, WW = V @ mT(V), W @ mT(W)
+        grad = any(ctx.needs_input_grad[:9])
+        out = gains_fwd(A, Bm, Q, R, Qf, F, VV, WW, Sigma0, horizon,
+                        stores=grad)
+        if grad:
+            ctx.save_for_backward(A, Bm, R, F, V, W, VV, WW, *out[3:])
+        return out[:3]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, Lbar, Hbar, Kbar):
+        A, Bm, R, F, V, W, VV, WW, S_st, P_st = ctx.saved_tensors
+        (Abar, Bbar, Qbar, Rbar, Qfbar, Fbar, VVbar, WWbar,
+         S0bar) = fused_gains_vjp(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
+                                  Kbar)
+        # chain VV = V V^T, WW = W W^T back to the noise scales
+        # (gains.py:857-859)
+        Vbar = (VVbar + mT(VVbar)) @ V
+        Wbar = (WWbar + mT(WWbar)) @ W
+        # the cotangents of the symmetric inputs in the symmetric gauge
+        # (gains.py:861-868)
+        return (Abar, Bbar, _sym(Qbar), _sym(Rbar), _sym(Qfbar), Fbar, Vbar,
+                Wbar, _sym(S0bar), None)
+
+
 def fused_gains(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int):
-    """Fused gain schedules for a batch of stationary specs.
+    """Fused gain schedules for a batch of stationary specs, differentiable.
 
     Args:
         spec: stationary spec with leading batch axis B (fields may
@@ -152,8 +352,10 @@ def fused_gains(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int):
     Returns ``(L (T, B, m, n), H (T, B, m, m), K (T, B, n, p))``, the same
     as :func:`lqg_tpu_torch.ops.riccati.backward` with ``regularize="none"``
     and :func:`lqg_tpu_torch.ops.kalman.forward`.  A CUDA tensor launches
-    the kernel (float32) or raises; a CPU tensor takes the plain version.
-    No gradient: that is K2's, which is not ported yet.
+    K1 (float32) and, for the gradient, K2, or raises; a CPU tensor takes
+    their plain versions.  The gradients of ``Q``, ``Qf``, ``R`` and
+    ``Sigma0`` come back symmetric; the affine terms get none (they are
+    structurally zero).
     """
     if not spec.zero_affine:
         raise ValueError(
@@ -167,37 +369,12 @@ def fused_gains(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int):
         raise ValueError(f"horizon must be positive, got {horizon}")
     fields = (spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F, spec.V,
               spec.W, Sigma0)
-    if any(x.requires_grad for x in fields) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "fused gains have no backward yet; use method='scan' for "
-            "gradients")
-    device = spec.A.device
-    if any(x.device != device for x in fields):
-        raise ValueError("spec and Sigma0 must lie on one device")
-    if device.type == "cpu":
-        return fused_gains_reference(spec, Sigma0, horizon)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    if any(x.dtype != torch.float32 for x in fields):
-        raise TypeError("fused gains kernel takes float32 tensors")
-
-    n, m, p = spec.A.shape[-1], spec.B.shape[-1], spec.F.shape[-2]
     Bn = torch.broadcast_shapes(*(x.shape[:-2] for x in fields))[0]
-    VV = spec.V @ mT(spec.V)
-    WW = spec.W @ mT(spec.W)
-    ins = [x.expand((Bn,) + x.shape[-2:]).contiguous()
-           for x in (spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F, VV, WW,
-                     Sigma0)]
-    L = torch.empty((horizon, Bn, m, n), dtype=torch.float32, device=device)
-    H = torch.empty((horizon, Bn, m, m), dtype=torch.float32, device=device)
-    K = torch.empty((horizon, Bn, n, p), dtype=torch.float32, device=device)
-    status = _lib().lqg_gains_fwd(
-        *(x.data_ptr() for x in ins), L.data_ptr(), H.data_ptr(),
-        K.data_ptr(), n, m, p, Bn, horizon, EPS,
-        torch.cuda.current_stream(device).cuda_stream)
-    nvcc.check(status, "gains_fwd")
-    fused_gains.launches += 1
-    return L, H, K
+    # expand before apply, so that autograd sums the gradient of a field
+    # shared along B
+    ins = [x.expand((Bn,) + x.shape[-2:]).contiguous() for x in fields]
+    return _FusedGains.apply(*ins, horizon)
 
 
 fused_gains.launches = 0
+fused_gains_vjp.launches = 0

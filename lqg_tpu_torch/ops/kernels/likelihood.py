@@ -1,8 +1,11 @@
-"""K3: fused conditioned and marginalized trajectory likelihood on the card.
+"""K3 and K4: fused conditioned and marginalized trajectory likelihood on the
+card, and its analytic adjoint.
 
-Replaces ``lqg_tpu/ops/pallas/likelihood.py:_ll_fwd_kernel`` (via
-``_ll_fwd_call`` and ``conditioned_log_likelihood_fused``).  Kernel source:
-``lqg_tpu_torch/csrc/likelihood.cu``.
+K3 replaces ``lqg_tpu/ops/pallas/likelihood.py:_ll_fwd_kernel`` (via
+``_ll_fwd_call``), K4 replaces ``likelihood.py:_ll_bwd_kernel`` (via
+``_ll_bwd_call``).  :func:`conditioned_log_likelihood_fused` joins them in a
+``torch.autograd.Function``, the counterpart of the JAX ``custom_vjp`` of
+the same name.  Kernel source: ``lqg_tpu_torch/csrc/likelihood.cu``.
 
 What it computes, per lane (one parameter set ``p``, one trial ``i``):
 
@@ -26,11 +29,17 @@ by parameter set, so the trials of one set read the same addresses (the
 Pallas layout copies them per trial), and there is no time chunking.  Sharing the data-free covariance recursion across a set's
 trials, and so running fewer, shorter chains, is left for a later change.
 
-The plain PyTorch version :func:`conditioned_log_likelihood_reference`
-repeats the arithmetic (same closed-form inverses, same ``eps``, same
-Neumaier order); the wrapper takes it only for tensors on the CPU.  There
-is no gradient: K4 is not ported yet, so gradients go through
-``method="scan"``.
+K4 (:func:`conditioned_log_likelihood_vjp`) runs the reverse recursion
+per lane from the carries K3 stores on the gradient path (``Sigma_t``,
+``mu_t`` for ``t = 0..T``), writing per-lane cotangents of ``F`` and ``Q``
+that the wrapper sums over trials (no atomics, so the sum's order is fixed)
+and the data cotangent of every ``x_t``.  It is latency-bound for the same
+reason as K3.
+
+The plain PyTorch versions :func:`conditioned_log_likelihood_reference` and
+:func:`conditioned_log_likelihood_vjp_reference` repeat the arithmetic
+(same closed-form inverses, same ``eps``, same Neumaier order); the
+wrappers take them only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -40,10 +49,11 @@ import math
 
 import torch
 import torch.nn.functional as nnf
+from torch.autograd.function import once_differentiable
 
 from lqg_tpu_torch.ops.linalg import mT
 from lqg_tpu_torch.ops.kernels import nvcc
-from lqg_tpu_torch.ops.kernels.gains import EPS, _sym, _sym_inv_det
+from lqg_tpu_torch.ops.kernels.gains import EPS, _on_card, _sym, _sym_inv_det
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -71,10 +81,13 @@ def _score(Sigma, mu, x, d):
 
 
 def conditioned_log_likelihood_reference(F: torch.Tensor, Q: torch.Tensor,
-                                         X: torch.Tensor):
+                                         X: torch.Tensor,
+                                         stores: bool = False):
     """Plain PyTorch version of K3: batched over lanes, a Python loop over
     T.  Same contract as :func:`conditioned_log_likelihood_fused`, any
-    float dtype."""
+    float dtype; with ``stores`` it also returns K3's stores, the carries
+    ``(Sigma_t, mu_t)``, ``t = 0..T``, per lane: ``(P, n, T+1, j, j)`` and
+    ``(P, n, T+1, j)``."""
     P_, T, j, _ = F.shape
     n, d = X.shape[1], X.shape[-1]
     Fl, Ql = F[:, None], Q[:, None]  # one schedule per parameter set
@@ -82,7 +95,10 @@ def conditioned_log_likelihood_reference(F: torch.Tensor, Q: torch.Tensor,
     mu = nnf.pad(X[:, :, 0], (0, j - d))
     zero = X.new_zeros((P_, n))
     quad_acc = ld_acc = quad_c = ld_c = zero
+    Sigmas, mus = [], []
     for t in range(T):
+        Sigmas.append(Sigma)
+        mus.append(mu)
         quad, det, Sinv, e = _score(Sigma, mu, X[:, :, t], d)
         mask = 1.0 if t >= 1 else 0.0
         quad_acc, quad_c = _neumaier_add(quad_acc, quad_c, mask * quad)
@@ -97,7 +113,70 @@ def conditioned_log_likelihood_reference(F: torch.Tensor, Q: torch.Tensor,
     # fold the compensation terms (small) before the large partials
     total = (quad_c + ld_c + quad + torch.log(det)) + quad_acc + ld_acc \
         + T * d * _LOG_2PI
-    return -0.5 * total
+    ll = -0.5 * total
+    if not stores:
+        return ll
+    Sigmas.append(Sigma)
+    mus.append(mu)
+    return ll, torch.stack(Sigmas, 2), torch.stack(mus, 2)
+
+
+def conditioned_log_likelihood_vjp_reference(F, X, w, Sig_st, mu_st):
+    """Plain PyTorch version of K4: batched over lanes, a Python loop over
+    T.  Same contract as :func:`conditioned_log_likelihood_vjp`, any float
+    dtype."""
+    P_, T, j, _ = F.shape
+    d = X.shape[-1]
+    w = w[..., None, None]  # (P, n, 1, 1)
+    vec = lambda v: v[..., None]  # (..., k) as a column (..., k, 1)
+    row = lambda v: v[..., None, :]
+
+    # seed: adjoint of the final score on (Sigma_T, mu_T)
+    _, _, Sinv, e = _score(Sig_st[:, :, T], mu_st[:, :, T], X[:, :, T], d)
+    Se = Sinv @ vec(e)  # (P, n, d, 1)
+    mbar = nnf.pad(w * Se, (0, 0, 0, j - d))
+    xbar_T = (-w * Se)[..., 0]
+    Sbar = nnf.pad(0.5 * w * (Se @ mT(Se) - Sinv), (0, j - d, 0, j - d))
+
+    Fbars, Qbars, Xbars = [], [], [xbar_T]
+    for t in range(T - 1, -1, -1):
+        Sigma, mu = Sig_st[:, :, t], vec(mu_st[:, :, t])
+        F_t = F[:, None, t]
+        # recompute the forward intermediates
+        _, _, Sinv, e = _score(Sigma, mu[..., 0], X[:, :, t], d)
+        e = vec(e)
+        FS = F_t @ Sigma
+        Pm = FS[..., :d]
+        J = Pm @ Sinv
+
+        Sbn = _sym(Sbar)
+        FSbar = Sbn @ F_t
+        Fbar = Sbn @ FS + mbar @ mT(mu)
+        Jbar = -(Sbn @ Pm) + mbar @ mT(e)
+        Pbar = -(Sbn @ J) + Jbar @ Sinv
+        Sinvbar = mT(Pm) @ Jbar
+        ebar = mT(J) @ mbar
+        # score adjoints, masked at t = 0
+        mask = 1.0 if t >= 1 else 0.0
+        ebar = ebar - (Sinv @ e) * (mask * w)
+        Sinvbar = Sinvbar - (e @ mT(e)) * (mask * 0.5 * w)
+        Sb = -(Sinv @ (Sinvbar @ Sinv)) - Sinv * (mask * 0.5 * w)
+        mubar = mT(F_t) @ mbar
+        mubar = torch.cat([mubar[..., :d, :] - ebar, mubar[..., d:, :]], -2)
+        # data cotangent: x_0 also reaches the init mu_0 = [x_0; 0]
+        xbar = ebar + mubar[..., :d, :] if t == 0 else ebar
+        Xbars.append(xbar[..., 0])
+        FSbar = FSbar + nnf.pad(Pbar, (0, j - d))
+        Fbar = Fbar + FSbar @ Sigma
+        Sbar = mT(F_t) @ FSbar + nnf.pad(_sym(Sb), (0, j - d, 0, j - d))
+        # t = 0: Sigma_0 = Q_0, so the carry's cotangent folds into Qbar_0
+        Qbar = Sbn + _sym(Sbar) if t == 0 else Sbn
+        Fbars.append(Fbar)
+        Qbars.append(Qbar)
+        mbar = mubar
+    Fbar = torch.stack(Fbars[::-1], 2).sum(1)
+    Qbar = torch.stack(Qbars[::-1], 2).sum(1)
+    return Fbar, Qbar, torch.stack(Xbars[::-1], 2)
 
 
 def fused_ll_available(j: int, d: int, dtype) -> bool:
@@ -107,15 +186,92 @@ def fused_ll_available(j: int, d: int, dtype) -> bool:
 
 def _lib():
     lib = nvcc.load("likelihood")
-    lib.lqg_ll_fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    lib.lqg_ll_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     lib.lqg_ll_fwd.restype = ctypes.c_int
+    lib.lqg_ll_bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                               + [ctypes.c_float, ctypes.c_void_p])
+    lib.lqg_ll_bwd.restype = ctypes.c_int
     return lib
+
+
+def ll_fwd(F, Q, X, stores: bool = False):
+    """K3 on checked inputs: ``ll (P, n)`` and, with ``stores``, the
+    carries ``(Sigma_t, mu_t)`` K4 reads.  A CUDA tensor launches the
+    kernel (float32) or raises; a CPU tensor takes the plain version."""
+    if not _on_card((F, Q, X), "fused likelihood"):
+        return conditioned_log_likelihood_reference(F, Q, X, stores)
+    P_, T, j, _ = F.shape
+    n, d = X.shape[1], X.shape[-1]
+    F, Q, X = F.contiguous(), Q.contiguous(), X.contiguous()
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=F.device)
+    ll = new(P_, n)
+    st = (new(P_, n, T + 1, j, j), new(P_, n, T + 1, j)) if stores else ()
+    status = _lib().lqg_ll_fwd(
+        F.data_ptr(), Q.data_ptr(), X.data_ptr(), ll.data_ptr(),
+        *([x.data_ptr() for x in st] if stores else [None, None]),
+        j, d, P_, n, T, EPS, T * d * _LOG_2PI,
+        torch.cuda.current_stream(F.device).cuda_stream)
+    nvcc.check(status, "ll_fwd")
+    conditioned_log_likelihood_fused.launches += 1
+    return (ll,) + st if stores else ll
+
+
+def conditioned_log_likelihood_vjp(F, X, w, Sig_st, mu_st):
+    """K4: the cotangents of K3's inputs from ``w``, that of its output.
+
+    Args:
+        F: ``(P, T, j, j)`` joint transitions; X: ``(P, n, T+1, d)``.
+        w: ``(P, n)`` cotangent of the per-trial log likelihoods.
+        Sig_st, mu_st: K3's stores, ``(P, n, T+1, j, j)`` and ``(P, n,
+            T+1, j)``.
+
+    Returns ``(Fbar, Qbar)``, each ``(P, T, j, j)`` and summed over trials,
+    and ``Xbar (P, n, T+1, d)``.  A CUDA tensor launches the kernel
+    (float32) or raises; a CPU tensor takes the plain version.
+    """
+    ins = (F, X, w, Sig_st, mu_st)
+    if not _on_card(ins, "fused likelihood adjoint"):
+        return conditioned_log_likelihood_vjp_reference(*ins)
+    P_, T, j, _ = F.shape
+    n, d = X.shape[1], X.shape[-1]
+    ins = [x.contiguous() for x in ins]
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=F.device)
+    Fbar, Qbar, Xbar = new(P_, n, T, j, j), new(P_, n, T, j, j), \
+        new(P_, n, T + 1, d)
+    status = _lib().lqg_ll_bwd(
+        *(x.data_ptr() for x in ins), Fbar.data_ptr(), Qbar.data_ptr(),
+        Xbar.data_ptr(), j, d, P_, n, T, EPS,
+        torch.cuda.current_stream(F.device).cuda_stream)
+    nvcc.check(status, "ll_bwd")
+    conditioned_log_likelihood_vjp.launches += 1
+    # per-lane cotangents summed over each parameter set's trials
+    return Fbar.sum(1), Qbar.sum(1), Xbar
+
+
+class _FusedLikelihood(torch.autograd.Function):
+    """K3 forward, K4 backward."""
+
+    @staticmethod
+    def forward(ctx, F, Q, X):
+        if not any(ctx.needs_input_grad):
+            return ll_fwd(F, Q, X)
+        ll, Sig_st, mu_st = ll_fwd(F, Q, X, stores=True)
+        ctx.save_for_backward(F, X, Sig_st, mu_st)
+        return ll
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, w):
+        F, X, Sig_st, mu_st = ctx.saved_tensors
+        return conditioned_log_likelihood_vjp(F, X, w, Sig_st, mu_st)
 
 
 def conditioned_log_likelihood_fused(F: torch.Tensor, Q: torch.Tensor,
                                      X: torch.Tensor):
-    """Marginalized trajectory log likelihood, fused.
+    """Marginalized trajectory log likelihood, fused and differentiable.
 
     Args:
         F: ``(P, T, j, j)`` joint (state, belief) transition schedules.
@@ -124,42 +280,21 @@ def conditioned_log_likelihood_fused(F: torch.Tensor, Q: torch.Tensor,
 
     Returns ``(P, n)`` per-trial log likelihoods of ``X[..., 1:, :]``, the
     quantity of :func:`lqg_tpu_torch.ops.gaussian.trial_log_likelihood`.
-    A CUDA tensor launches the kernel (float32) or raises; a CPU tensor
-    takes the plain version.  An input that requires grad raises.
+    A CUDA tensor launches K3 (float32) and, for the gradient, K4, or
+    raises; a CPU tensor takes their plain versions.
     """
     if F.dim() != 4 or Q.shape != F.shape or X.dim() != 4:
         raise ValueError("expected F, Q (P, T, j, j) and X (P, n, T+1, d)")
     P_, T, j, _ = F.shape
-    n, d = X.shape[1], X.shape[-1]
+    d = X.shape[-1]
     if X.shape[0] != P_ or X.shape[2] != T + 1:
         raise ValueError(f"X {tuple(X.shape)} does not match F "
                          f"{tuple(F.shape)}: expected ({P_}, n, {T + 1}, d)")
     if (j, d) not in INSTANCES:
         raise ValueError(f"(j, d) = {(j, d)} outside the kernel's scope "
                          f"{sorted(INSTANCES)}")
-    if any(x.requires_grad for x in (F, Q, X)) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the fused likelihood has no backward yet; use method='scan' "
-            "for gradients")
-    device = F.device
-    if Q.device != device or X.device != device:
-        raise ValueError("F, Q and X must lie on one device")
-    if device.type == "cpu":
-        return conditioned_log_likelihood_reference(F, Q, X)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    if any(x.dtype != torch.float32 for x in (F, Q, X)):
-        raise TypeError("fused likelihood kernel takes float32 tensors")
-
-    F, Q, X = F.contiguous(), Q.contiguous(), X.contiguous()
-    ll = torch.empty((P_, n), dtype=torch.float32, device=device)
-    status = _lib().lqg_ll_fwd(
-        F.data_ptr(), Q.data_ptr(), X.data_ptr(), ll.data_ptr(),
-        j, d, P_, n, T, EPS, T * d * _LOG_2PI,
-        torch.cuda.current_stream(device).cuda_stream)
-    nvcc.check(status, "ll_fwd")
-    conditioned_log_likelihood_fused.launches += 1
-    return ll
+    return _FusedLikelihood.apply(F, Q, X)
 
 
 conditioned_log_likelihood_fused.launches = 0
+conditioned_log_likelihood_vjp.launches = 0

@@ -6,9 +6,15 @@ computes gains and the data-free covariance recursion once per parameter
 set.  Dispatch between the hand-written kernels and the scans is explicit:
 ``method="auto"`` picks a kernel exactly where the JAX package picks its
 Pallas kernel on a TPU - a CUDA float32 tensor, a spec in the kernel's scope
-with ``zero_affine`` set - and, while the kernels have no backward, only
-where no gradient is needed.  ``method="fused"`` or ``"scan"`` forces a
-path.
+with ``zero_affine`` set - whether or not a gradient is needed: each
+kernel's ``torch.autograd.Function`` carries its backward kernel (K2, K4).
+``method="fused"`` or ``"scan"`` forces a path.
+
+A stationary spec may carry one leading parameter-set axis ``P`` (the
+tracking models broadcast tensor parameters over it): ``gains`` then
+returns ``(T, P, ., .)`` and ``log_likelihood`` takes ``x (P, n, T+1, d)``
+and returns ``(P, n)``, the batch-first counterpart of ``jax.vmap`` over
+the JAX constructors.
 """
 
 from __future__ import annotations
@@ -37,8 +43,10 @@ def _at(x: torch.Tensor, spec: LQGSpec, t: int) -> torch.Tensor:
     return x[..., t, :, :] if _stacked(spec) else x
 
 
-def _needs_grad(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+def _batch_shape(spec: LQGSpec) -> torch.Size:
+    """The parameter-set axes of a spec: those before its matrix (and, when
+    stacked, time) axes."""
+    return spec.Qf.shape[:-2]
 
 
 def _not_ported(method: str, item: str):
@@ -96,17 +104,29 @@ class System:
         return self.dynamics.dtype
 
     # --- gains ---
+    @property
+    def batch_shape(self) -> torch.Size:
+        """Parameter-set axes of the system, ``()`` or ``(P,)``."""
+        return torch.broadcast_shapes(_batch_shape(self.actor),
+                                      _batch_shape(self.dynamics))
+
     def _default_Sigma0(self) -> torch.Tensor:
-        V0 = self.actor.V[0] if _stacked(self.actor) else self.actor.V
+        V0 = _at(self.actor.V, self.actor, 0)
         return V0 @ mT(V0)
 
     def _fused_ok(self, Sigma0: torch.Tensor) -> bool:
-        """Does ``auto`` take the fused gains kernel (K1)?"""
+        """Does ``auto`` take the fused gains kernels (K1, K2)?"""
         a = self.actor
-        return (a.device.type == "cuda" and a.A.dim() == 2
+        return (a.device.type == "cuda" and a.A.dim() <= 3
                 and a.dtype == torch.float32 and a.zero_affine
-                and fused_gains_available(a)
-                and not _needs_grad(*a.tensors(), Sigma0))
+                and Sigma0.dim() <= 3 and fused_gains_available(a))
+
+    def _fused_ll_ok(self, F: torch.Tensor, x: torch.Tensor) -> bool:
+        """Does ``auto`` take the fused likelihood kernels (K3, K4) for the
+        joint transitions ``F (T, [P,] j, j)``?"""
+        return (x.device.type == "cuda" and F.dim() <= 4
+                and x.dtype == F.dtype
+                and fused_ll_available(F.shape[-1], x.shape[-1], F.dtype))
 
     def gains(self, Sigma0=None, method: str = "auto"):
         """Control gains and Kalman gains from the actor's internal model.
@@ -119,7 +139,8 @@ class System:
                 not ported yet.
 
         Returns ``(Gains, K)`` with time-leading ``L (T, m, n)``,
-        ``l (T, m)``, ``H (T, m, m)`` and ``K (T, n, p)``.
+        ``l (T, m)``, ``H (T, m, m)`` and ``K (T, n, p)``, each with the
+        parameter-set axis after time, ``(T, P, ., .)``, for a batched spec.
         """
         Sigma0 = self._default_Sigma0() if Sigma0 is None else Sigma0
         if method in ("sqrt", "steady"):
@@ -127,10 +148,14 @@ class System:
         if method == "auto":
             method = "fused" if self._fused_ok(Sigma0) else "scan"
         if method == "fused":
-            batched = LQGSpec(*(x[None] for x in self.actor.tensors()),
-                              zero_affine=self.actor.zero_affine)
-            L, H, K = fused_gains(batched, Sigma0[None], self.horizon)
-            L, H, K = L[:, 0], H[:, 0], K[:, 0]
+            one = self.actor.A.dim() == 2  # unbatched: a batch of one
+            spec = LQGSpec(*(x[None] for x in self.actor.tensors()),
+                           zero_affine=self.actor.zero_affine) if one \
+                else self.actor
+            L, H, K = fused_gains(spec, Sigma0[None] if one else Sigma0,
+                                  self.horizon)
+            if one:
+                L, H, K = L[:, 0], H[:, 0], K[:, 0]
             l = L.new_zeros(L.shape[:-1])  # zero affine terms
             return riccati.Gains(L=L, l=l, H=H), K
         if method != "scan":
@@ -161,6 +186,10 @@ class System:
         ``eps (T, n, k)`` for the process, ``eta (T, n, l)`` for the
         observations (reference ``system.py:62-140``)."""
         T, n = eps.shape[:2]
+        if self.batch_shape:
+            raise ValueError(
+                f"simulate takes an unbatched System; this one has "
+                f"parameter-set axes {tuple(self.batch_shape)}")
         if T != self.horizon:
             raise ValueError(f"noise has {T} steps, horizon is {self.horizon}")
         gains, K = self.gains(Sigma0)
@@ -236,7 +265,10 @@ class System:
         return GaussianSequence(mu[..., :d], Sigma)
 
     def log_likelihood(self, x, Sigma0=None, method: str = "auto"):
-        """Per-trial log likelihood ``(n,)`` of ``x[:, 1:]`` given the model.
+        """Per-trial log likelihood ``(n,)`` of ``x[:, 1:]`` given the model;
+        ``(P, n)`` for a System of ``P`` parameter sets, whose trajectories
+        ``x (P, n, T+1, d)`` may broadcast along ``P``.  Differentiable on
+        every path.
 
         Args:
             method: ``"auto"`` (K3 where it applies, else the scan),
@@ -251,17 +283,19 @@ class System:
             raise _not_ported(method, "item 9, kernel K5")
         if method == "pscan":
             raise _not_ported(method, "item 14")
+        # trajectories shared by the parameter sets: autograd sums along P
+        x = x.expand(torch.broadcast_shapes(self.batch_shape, x.shape[:-3])
+                     + x.shape[-3:])
         joint = self._joint(Sigma0)
         if method == "auto":
-            fits = (x.device.type == "cuda" and joint.F.dim() == 3
-                    and x.dtype == joint.F.dtype
-                    and fused_ll_available(joint.F.shape[-1], d, joint.F.dtype))
-            method = ("fused" if fits and not _needs_grad(joint.F, joint.G, x)
-                      else "scan")
+            method = "fused" if self._fused_ll_ok(joint.F, x) else "scan"
         if method == "fused":
-            Q = joint.G @ mT(joint.G)
-            return conditioned_log_likelihood_fused(
-                joint.F[None], Q[None], x[None])[0]
+            one = joint.F.dim() == 3  # unbatched: a batch of one
+            F = joint.F[:, None] if one else joint.F
+            G = joint.G[:, None] if one else joint.G
+            F, Q = (torch.movedim(M, 0, 1) for M in (F, G @ mT(G)))
+            ll = conditioned_log_likelihood_fused(F, Q, x[None] if one else x)
+            return ll[0] if one else ll
         if method != "scan":
             raise ValueError(
                 f"method must be auto|fused|scan, got {method!r}")

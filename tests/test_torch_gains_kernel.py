@@ -16,6 +16,7 @@ from lqg_tpu_torch.models.basic import tracking_spec
 from lqg_tpu_torch.ops.kernels.gains import (fused_gains,
                                              fused_gains_available,
                                              fused_gains_reference)
+from lqg_tpu_torch.ops import riccati
 from lqg_tpu_torch.ops.linalg import mT
 
 ATOL = 2e-5  # as tests/test_pallas.py holds the Pallas kernel
@@ -95,8 +96,14 @@ def test_wrapper_checks():
     S0 = spec.V @ mT(spec.V)
     with pytest.raises(ValueError, match="zero"):
         fused_gains(spec._replace(q=spec.q + 1), S0, 5)
-    with pytest.raises(NotImplementedError):
-        fused_gains(spec._replace(R=spec.R.clone().requires_grad_()), S0, 5)
+    # a gradient goes through the Function, equal to the scans'
+    R = spec.R.clone().requires_grad_()
+    L, H, K = fused_gains(spec._replace(R=R), S0, 5)
+    (g_fused,) = torch.autograd.grad(L[..., 0].sum() + H.sum(), R)
+    scan = riccati.backward(spec._replace(R=R), horizon=5, regularize="none")
+    (g_scan,) = torch.autograd.grad(scan.L[..., 0].sum() + scan.H.sum(), R)
+    assert torch.isfinite(g_fused).all()
+    torch.testing.assert_close(g_fused, g_scan, rtol=1e-4, atol=1e-6)
     with pytest.raises(ValueError, match="scope"):
         fused_gains(tracking_spec(2, 1.0, 0.5, 6.0, 6.0, 1.0, 1 / 60,
                                   device="cpu"), S0, 5)

@@ -15,6 +15,7 @@ from lqg_tpu_torch.models import BoundedActor
 from lqg_tpu_torch.ops.kernels.likelihood import (
     conditioned_log_likelihood_fused, conditioned_log_likelihood_reference,
     fused_ll_available)
+from lqg_tpu_torch.ops import gaussian
 from lqg_tpu_torch.ops.linalg import mT
 
 RTOL, ATOL = 2e-4, 2e-3  # as tests/test_pallas.py holds the Pallas kernel
@@ -73,8 +74,20 @@ def test_wrapper_on_cpu_is_the_reference():
 
 def test_wrapper_checks():
     F, Q, X = (torch.tensor(a) for a in _inputs(P=2, n=3, T=12))
-    with pytest.raises(NotImplementedError):
-        conditioned_log_likelihood_fused(F.requires_grad_(), Q, X)
+    # a gradient goes through the Function, equal to the scan's
+    m = BoundedActor(T=12, device="cpu", dtype=torch.float64)
+    x = m.simulate(torch.Generator().manual_seed(0), n=3)
+    joint = m._joint()
+    Fj = joint.F.clone().requires_grad_()
+    ll = conditioned_log_likelihood_fused(Fj[None], (joint.G @ mT(joint.G))[None],
+                                          x[None])
+    (g_fused,) = torch.autograd.grad(ll.sum(), Fj)
+    kernel = gaussian.conditional_kernel(gaussian.JointSystem(Fj, joint.G), 2)
+    (g_scan,) = torch.autograd.grad(
+        gaussian.trial_log_likelihood(kernel, x).sum(), Fj)
+    assert torch.isfinite(g_fused).all()
+    torch.testing.assert_close(g_fused, g_scan, rtol=1e-7,
+                               atol=1e-7 * float(g_scan.abs().max()))
     with pytest.raises(ValueError, match="does not match"):
         conditioned_log_likelihood_fused(F.detach(), Q, X[:, :, :-1])
     with pytest.raises(ValueError, match="scope"):

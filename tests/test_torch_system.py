@@ -15,6 +15,7 @@ from jax import random
 
 from lqg_tpu import models as jmodels
 from lqg_tpu_torch import models as tmodels
+from lqg_tpu_torch.system import System
 from lqg_tpu_torch.ops.kernels.gains import fused_gains
 from lqg_tpu_torch.ops.kernels.likelihood import (
     conditioned_log_likelihood_fused)
@@ -176,14 +177,62 @@ def test_methods_not_ported_raise():
         m.log_likelihood(x, method="bogus")
 
 
-def test_gradient_goes_through_the_scan():
+def test_gradient_goes_through_the_scan(monkeypatch):
+    """The gradient of the likelihood in a parameter: on the scan and, with
+    both kernels' routes forced on, through the two ``autograd.Function``s
+    (their plain versions on the CPU), equal up to the scan's Riccati
+    jitter (relative 1e-8)."""
     c = torch.tensor(0.7, dtype=torch.float64, requires_grad=True)
-    m = tmodels.BoundedActor(T=20, action_cost=c, **F64)
-    x = m.simulate(torch.Generator().manual_seed(1), n=2).detach()
-    m.log_likelihood(x).sum().backward()
-    assert torch.isfinite(c.grad)
-    with pytest.raises(NotImplementedError):
-        m.log_likelihood(x, method="fused")
+    x = tmodels.BoundedActor(T=20, action_cost=0.7, **F64).simulate(
+        torch.Generator().manual_seed(1), n=2)
+
+    def grad(method):
+        m = tmodels.BoundedActor(T=20, action_cost=c, **F64)
+        return torch.autograd.grad(m.log_likelihood(x, method=method).sum(),
+                                   c)[0]
+
+    g_scan = grad("scan")
+    monkeypatch.setattr(System, "_fused_ok", lambda self, Sigma0: True)
+    g_fused = grad("fused")
+    assert torch.isfinite(g_fused)
+    close(g_fused, g_scan, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("model,param,values", [
+    ("BoundedActor", "action_cost", [0.3, 0.7, 1.5]),
+    ("BoundedActor", "sigma_target", [2.0, 6.0, 20.0, 40.0, 9.0]),  # P == T
+    ("RelativeObservationBoundedActor", "sigma", [2.0, 5.0]),
+])
+def test_batched_system_equals_loop_over_parameter_sets(model, param, values,
+                                                        monkeypatch):
+    """A System whose parameter carries a leading axis P equals P unbatched
+    Systems: gains, and the likelihood on the scan and the fused routes
+    (trajectories shared by the sets, or one batch per set)."""
+    T = 5
+    cls = getattr(tmodels, model)
+    batched = cls(T=T, **{param: torch.tensor(values, dtype=torch.float64)},
+                  **F64)
+    singles = [cls(T=T, **{param: v}, **F64) for v in values]
+    P = len(values)
+    assert batched.batch_shape == (P,)
+    x = singles[0].simulate(torch.Generator().manual_seed(2), n=3)
+    xs = x.expand(P, *x.shape)
+    with pytest.raises(ValueError, match="unbatched"):
+        batched.simulate(None, n=1)
+    monkeypatch.setattr(System, "_fused_ok", lambda self, Sigma0: True)
+    for method in ("scan", "fused"):
+        g, K = batched.gains(method=method)
+        loop = [m.gains(method=method) for m in singles]
+        assert g.L.shape[:2] == (T, P)
+        close(g.L, torch.stack([gi.L for gi, _ in loop], 1), rtol=1e-12,
+              atol=0)
+        close(K, torch.stack([Ki for _, Ki in loop], 1), rtol=1e-12, atol=0)
+        want = torch.stack([m.log_likelihood(x, method=method)
+                            for m in singles])
+        for data in (x, xs):
+            ll = batched.log_likelihood(data, method=method)
+            assert ll.shape == (P, 3)
+            close(ll, want, rtol=1e-12, atol=0)
 
 
 def test_default_device_without_card_raises(monkeypatch):

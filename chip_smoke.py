@@ -28,9 +28,28 @@ beside it.  Phases, each fatal on failure:
    4 chains at once, with the counters zeroed just before and read just
    after (K1-K4 once each); against the float64 model on the card (the
    scans); its warm host-clock time and the device's busy share;
-8. times from CUDA events (warmed, median of 7 runs of 20 launches; fewer
-   for the plain versions, which take ~0.5-1 s a call) beside each
-   kernel's bound.
+8. K5 (blocked large-j likelihood) and its stores, and K6 (its adjoint) on
+   a random cotangent, against their plain versions at the delay fit's
+   shape: 24 sets of ``DelayedSubjectiveActor`` (j=65, d=2) x 20 trials at
+   T=1008; and at the edge of the scope,
+   ``TemporalDelayModel(SubjectiveActor(dim=2), delay=11)`` (j=120, d=4) at
+   T=40;
+9. the forward delay path, ``DelayedSubjectiveActor(T=1008)`` ->
+   ``simulate(n=20)`` -> ``log_likelihood(x[..., :2], method="auto")``, K5's
+   counter zeroed just before and read just after; against the float64
+   scan on the card; warm host-clock time and the device's busy share;
+10. the gradient delay path: ``shared_params_lqg_model(x,
+    DelayedSubjectiveActor, ...)`` of 6 conditions x 20 simulated trials at
+    T=1008, value and gradient for 4 chains at once, all counters zeroed
+    just before (K5 and K6 once each, K1-K4 not at all: the gains at n=39
+    are the scans); against the float64 model on the card; warm host-clock
+    time and the device's busy share;
+11. the (3, 1, 2) instances of K1/K2 and the (5, 2) instances of K3/K4
+    against their plain versions through ``SubjectiveActor``, and its value
+    and gradient through the entry points (K1-K4 once each);
+12. times from CUDA events (warmed, median of 7 runs of 20 launches; fewer
+    for K5, K6 and the plain versions, which take ~0.5-3 s a call) beside
+    each kernel's bound.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -38,6 +57,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -69,6 +89,18 @@ POT_RTOL, POT_GRAD_RTOL = 2e-4, 5e-3
 T_FIT = 1008  # the data.mat fit's horizon
 CONDITIONS, CHAINS = 6, 4
 SHARED = ["action_cost", "action_variability", "sigma_cursor"]
+# K5 as tests/test_pallas.py:481 holds the Pallas blocked kernel; its stores
+# and K6's cotangents, which the JAX test scales by each output's largest
+# entry (:504-507), within BLK_SCALED of max |plain|
+BLK_RTOL, BLK_ATOL, BLK_SCALED = 2e-3, 0.2, 2e-3
+DELAY_SHARED = ["c", "subj_noise", "subj_vel_noise", "sigma_cursor",
+                "action_variability"]
+# the delay paths against float64: the value at the blocked kernel's rtol;
+# the gradient's components differ by four orders of magnitude, so each is
+# held to DELAY_GRAD_RTOL of itself (the gradient path's rtol) plus
+# DELAY_GRAD_SCALED of the largest (measured on an H100: 5.1e-4 and 9.9e-7)
+DELAY_POT_RTOL, DELAY_GRAD_RTOL, DELAY_GRAD_SCALED = 2e-3, 5e-3, 1e-5
+EDGE_DELAY, EDGE_T, EDGE_SETS = 11, 40, 2  # j = 2 * (2 + 3) * 12 = 120, d = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -84,6 +116,28 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(report: str):
+    """One line per kernel of an ``-Xptxas -v`` report: its name and
+    template arguments, registers, stack frame and spills."""
+    rows, name = [], "?"
+    for line in report.splitlines():
+        entry = re.search(r"Function properties for \S*?_cu_[0-9a-f]{8}(\d+)"
+                          r"(\w+)", line)
+        if entry:
+            length, rest = int(entry.group(1)), entry.group(2)
+            args = re.findall(r"L[ib](\d+)E", rest[length:])
+            name = f"{rest[:length]}<{', '.join(args)}>"
+        spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                           r"stores, (\d+) bytes spill loads", line)
+        if spills:
+            stack = spills.groups()
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            rows.append(f"{name}: {used.group(1)} registers, stack {stack[0]} "
+                        f"B, spill stores {stack[1]} B, loads {stack[2]} B")
+    return rows
 
 
 def cuda_ms(fn, runs=7, launches=20):
@@ -133,7 +187,9 @@ def mm(r, k, c):
     return r * c * (2 * k - 1)
 
 
-INV_OPS = {1: 2, 2: 11}  # closed-form symmetric inverse, eps included
+# closed-form symmetric inverse, eps included (3: cofactors; 4: Schur
+# complement on 2 x 2 blocks)
+INV_OPS = {1: 2, 2: 11, 3: 34, 4: 102}
 
 
 def gains_work(B, n, m, p):
@@ -204,6 +260,40 @@ def ll_bwd_work(P, n, j, d):
     return (inputs + outputs) * 4, P * n * (T * step + seed)
 
 
+def _blocked_common(n, j, d):
+    """Operations of what K5 and K6 share in a step: the score of n trials,
+    Kc, the rank-d conditioning of Sig and MU, and F Sc."""
+    score = INV_OPS[d] + 1 + n * (d + mm(d, d, 1) + 2 * d - 1 + 14)
+    return (score + mm(j, d, d) + j * j * (2 * d + 1) + 2 * j * n * d
+            + mm(j, j, j))
+
+
+def ll_blocked_work(P, n, j, d, T):
+    """(bytes, operations) of K5 (store-free) for P sets x n trials over T
+    steps at the true j: F, Q and the data read once, ll written once."""
+    step = _blocked_common(n, j, d) + mm(j, j, j) + j * j + mm(j, j, n)
+    final = INV_OPS[d] + 1 + n * (d + mm(d, d, 1) + 2 * d + 6)
+    nbytes = 2 * P * T * j * j + P * n * (T + 1) * d + P * n
+    return nbytes * 4, P * (T * step + final)
+
+
+def ll_blocked_bwd_work(P, n, j, d, T):
+    """(bytes, operations) of K6: F, the data, the cotangent and K5's stores
+    read once, F-bar, Q-bar and the data cotangent written once."""
+    step = (_blocked_common(n, j, d) + mm(j, d, d) + j * j
+            + mm(j, j, j) + j * j + mm(j, n, j) + j * j  # Fbar
+            + 2 * mm(j, j, j) + mm(j, j, n)  # Scrb, MUc_bar
+            + mm(j, j, d) + mm(j, n, d) + j * d  # Kcbar
+            + mm(d, j, n) + 2 * d * n + mm(d, j, j)  # Ebar, row correction
+            + mm(d, j, d) + d * d * 3 * n + 2 * mm(d, d, d) + 5 * d * d
+            + j * d * 2 * d + 2 * d * j + d * n)
+    seed = INV_OPS[d] + n * (d + mm(d, d, 1) + 2 * d) + d * d * (2 * n + 2)
+    inputs = (P * T * j * j + P * n * (T + 1) * d + P * n
+              + P * (T + 1) * (j * j + j * n))
+    outputs = 2 * P * T * j * j + P * n * (T + 1) * d
+    return (inputs + outputs) * 4, P * (T * step + seed)
+
+
 def bound(work):
     nbytes, ops = work
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -225,7 +315,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from lqg_tpu_torch.infer import shared_params_lqg_model
-    from lqg_tpu_torch.models import BoundedActor
+    from lqg_tpu_torch.models import (BoundedActor, DelayedSubjectiveActor,
+                                      SubjectiveActor, TemporalDelayModel)
     from lqg_tpu_torch.models.basic import tracking_spec
     from lqg_tpu_torch.ops.kernels import nvcc
     from lqg_tpu_torch.ops.kernels.gains import (fused_gains,
@@ -238,11 +329,19 @@ def main() -> int:
         conditioned_log_likelihood_reference,
         conditioned_log_likelihood_vjp,
         conditioned_log_likelihood_vjp_reference, ll_fwd)
+    from lqg_tpu_torch.ops.kernels.likelihood_blocked import (
+        conditioned_log_likelihood_blocked,
+        conditioned_log_likelihood_blocked_reference,
+        conditioned_log_likelihood_blocked_vjp,
+        conditioned_log_likelihood_blocked_vjp_reference, ll_blocked_fwd)
     from lqg_tpu_torch.ops.linalg import mT
 
     counters = (fused_gains, fused_gains_vjp, conditioned_log_likelihood_fused,
                 conditioned_log_likelihood_vjp)
     names = ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd")
+    all_counters = counters + (conditioned_log_likelihood_blocked,
+                               conditioned_log_likelihood_blocked_vjp)
+    all_names = names + ("ll_blocked_fwd", "ll_blocked_bwd")
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -256,12 +355,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = nvcc.build_all(["gains", "likelihood"])
+    reports = nvcc.build_all(["gains", "likelihood", "likelihood_blocked"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
-        for line in report.splitlines():
-            if "ptxas" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for row in ptxas_summary(report):
+            log(f"  {name}.cu {row}")
 
     # 3. K1 against its plain version, bench.py's sweep
     B = GAINS_BATCH
@@ -531,7 +629,286 @@ def main() -> int:
         log("gradient path under torch.profiler: no device events recorded; "
             "device busy share not measured")
 
-    # 8. times
+    # free the gradient path's graph before the delay phases
+    del pmodel, model64, pot, grad, pot64, grad64, joint, sets
+    torch.cuda.empty_cache()
+
+    def scaled_err(a, b):
+        """max |a - b| over max |b|."""
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
+
+    def blocked_against_plain(F_, Q_, X_, what):
+        """K5 (both variants), its stores and K6 against their plain
+        versions; returns K5's and K6's max abs errors and K6's inputs."""
+        out = ll_blocked_fwd(F_, Q_, X_, stores=True)
+        ref = conditioned_log_likelihood_blocked_reference(F_, Q_, X_,
+                                                           stores=True)
+        ll_free = ll_blocked_fwd(F_, Q_, X_)
+        torch.cuda.synchronize()
+        err5 = float((out[0] - ref[0]).abs().max())
+        st = [scaled_err(a, b) for a, b in zip(out[1:], ref[1:])]
+        require(bool(torch.isfinite(out[0]).all()), f"K5 not finite, {what}")
+        require(within(out[0], ref[0], BLK_RTOL, BLK_ATOL),
+                f"K5 vs plain, {what}: {err5}")
+        require(bool((ll_free == out[0]).all()),
+                f"K5 store-free and stores variants differ, {what}")
+        require(max(st) <= BLK_SCALED, f"K5 stores vs plain, {what}: {st}")
+        w_ = torch.randn(out[0].shape, generator=g2, device=dev)
+        args = (F_, X_, w_, *out[1:])
+        got = conditioned_log_likelihood_blocked_vjp(*args)
+        want = conditioned_log_likelihood_blocked_vjp_reference(*args)
+        torch.cuda.synchronize()
+        err6 = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        sc = [scaled_err(a, b) for a, b in zip(got, want)]
+        log(f"K5 vs plain, {what}: max abs err {err5:.3e} of |ll| ~ "
+            f"{float(ref[0].abs().mean()):.1f} (rtol {BLK_RTOL}, atol "
+            f"{BLK_ATOL}); stores err / max|plain| Sig {st[0]:.3e}, MU "
+            f"{st[1]:.3e}; K6 vs plain err / max|plain| "
+            + ", ".join(f"{k} {e:.3e} (max {float(b.abs().max()):.4g})"
+                        for k, e, b in zip(("Fbar", "Qbar", "Xbar"), sc, want))
+            + f" (all within {BLK_SCALED})")
+        require(all(bool(torch.isfinite(a).all()) for a in got),
+                f"K6 not finite, {what}")
+        require(max(sc) <= BLK_SCALED, f"K6 vs plain, {what}: {sc}")
+        return err5, err6, args
+
+    # 8. K5, its stores and K6 against their plain versions: the delay
+    # fit's 24 parameter sets and its simulated data (phase 10 makes both)
+    sigma_targets = [3.0 + 5.0 * c for c in range(CONDITIONS)]
+    x_delay = torch.stack([
+        DelayedSubjectiveActor(T=T_FIT, sigma_target=st_, device=dev).simulate(
+            g2, n=LL_TRIALS)[..., :2] for st_ in sigma_targets])
+    sets = DelayedSubjectiveActor(
+        T=T_FIT, device=dev,
+        sigma_target=torch.tensor(sigma_targets * CHAINS, device=dev),
+        c=torch.tensor([0.25 * (1 + k) for k in range(CHAINS)
+                        for _ in range(CONDITIONS)], device=dev))
+    joint = sets._joint()
+    F5, Q5 = (torch.movedim(M, 0, 1).contiguous()
+              for M in (joint.F, joint.G @ mT(joint.G)))
+    X5 = x_delay.repeat(CHAINS, 1, 1, 1)  # (24, 20, T+1, 2)
+    del joint, sets
+    J5 = F5.shape[-1]
+    k5_err, k6_err, k6_args = blocked_against_plain(
+        F5, Q5, X5, f"P={F5.shape[0]}, n={LL_TRIALS}, T={T_FIT}, j={J5}, d=2")
+    # the edge of the scope: j = 120, d = 4
+    Fe, Qe, Xe = [], [], []
+    for k in range(EDGE_SETS):
+        m = TemporalDelayModel(
+            SubjectiveActor(dim=2, T=EDGE_T, sigma_target=4.0 + 3.0 * k,
+                            device=dev), delay=EDGE_DELAY)
+        joint = m._joint()
+        Fe.append(joint.F)
+        Qe.append(joint.G @ mT(joint.G))
+        Xe.append(m.simulate(g2, n=LL_TRIALS)[..., :4])
+    Fe, Qe, Xe = torch.stack(Fe), torch.stack(Qe), torch.stack(Xe)
+    blocked_against_plain(
+        Fe, Qe, Xe, f"P={EDGE_SETS}, n={LL_TRIALS}, T={EDGE_T}, "
+        f"j={Fe.shape[-1]}, d=4")
+    del Fe, Qe, Xe, joint, m
+    torch.cuda.empty_cache()
+
+    # 9. the forward delay path, through the entry points a user calls
+    conditioned_log_likelihood_blocked.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dmodel = DelayedSubjectiveActor(T=T_FIT, device=dev)
+    xd = dmodel.simulate(torch.Generator(device=dev).manual_seed(3),
+                         n=LL_TRIALS)[..., :2]
+    ll_d = dmodel.log_likelihood(xd, method="auto")
+    torch.cuda.synchronize()
+    delay_s = time.perf_counter() - t0
+    delay_launches = {
+        "ll_blocked_fwd": conditioned_log_likelihood_blocked.launches}
+    log(f"forward delay path: DelayedSubjectiveActor simulate(n={LL_TRIALS}) "
+        f"+ log_likelihood at T={T_FIT} in {delay_s:.3f} s (first call, host "
+        f"clock); launches {delay_launches}")
+    require(delay_launches["ll_blocked_fwd"] > 0,
+            f"forward delay path bypassed K5: {delay_launches}")
+    require(xd.shape == (LL_TRIALS, T_FIT + 1, 2)
+            and ll_d.shape == (LL_TRIALS,), "forward delay path: wrong shapes")
+    require(bool(torch.isfinite(xd).all() and torch.isfinite(ll_d).all()),
+            "forward delay path: values not finite")
+    ll_d64 = DelayedSubjectiveActor(
+        T=T_FIT, device=dev, dtype=torch.float64).log_likelihood(
+            xd.double(), method="scan")
+    d_err = float((ll_d.double() - ll_d64).abs().max())
+    d_rel = float(((ll_d.double() - ll_d64) / ll_d64).abs().max())
+    require(within(ll_d.double(), ll_d64, BLK_RTOL, BLK_ATOL),
+            f"forward delay path vs float64 scan: {d_err}")
+    log(f"forward delay path vs float64 scan on the card: max abs err "
+        f"{d_err:.3e}, max rel err {d_rel:.3e} of |ll| ~ "
+        f"{float(ll_d64.abs().mean()):.1f} (rtol {BLK_RTOL}, atol {BLK_ATOL})")
+
+    def delay_path():
+        dmodel.log_likelihood(dmodel.simulate(g, n=LL_TRIALS)[..., :2])
+
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        delay_path()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    log(f"forward delay path warm, host clock: median "
+        f"{statistics.median(warm):.4f} s of {[round(w, 4) for w in warm]}")
+    wall, busy, n_events, named = profile_ms(delay_path, ("ll_blocked_fwd",))
+    if n_events:
+        log(f"forward delay path under torch.profiler: wall {wall:.1f} ms, "
+            f"device busy {busy:.2f} ms ({100 * busy / wall:.2f}% of wall) "
+            f"over {n_events} device events; ll_blocked_fwd "
+            f"{named['ll_blocked_fwd']:.3f} ms")
+    else:
+        log("forward delay path under torch.profiler: no device events "
+            "recorded; device busy share not measured")
+
+    # 10. the gradient delay path, through the entry points a user calls
+    dpm = shared_params_lqg_model(x_delay, DelayedSubjectiveActor,
+                                  shared_params=DELAY_SHARED)
+    u0 = dpm.init_unconstrained()
+    ud = (u0 + 0.1 * torch.randn((CHAINS,) + u0.shape, generator=g2,
+                                 device=dev)).requires_grad_()
+    for fn in all_counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pot, grad = value_and_grad(dpm, ud)
+    torch.cuda.synchronize()
+    dgrad_s = time.perf_counter() - t0
+    dgrad_launches = {k: fn.launches for k, fn in zip(all_names, all_counters)}
+    log(f"gradient delay path: {CHAINS} chains x {CONDITIONS} conditions x "
+        f"{LL_TRIALS} trials at T={T_FIT}, D={ud.shape[-1]}: value+grad in "
+        f"{dgrad_s:.3f} s (first call, host clock); launches {dgrad_launches}")
+    require(dgrad_launches["ll_blocked_fwd"] == 1
+            and dgrad_launches["ll_blocked_bwd"] == 1
+            and not any(dgrad_launches[k] for k in names),
+            f"gradient delay path: K5 and K6 once each and the scans for the "
+            f"gains, got {dgrad_launches}")
+    require(pot.shape == (CHAINS,) and grad.shape == ud.shape,
+            "gradient delay path: wrong shapes")
+    require(bool(torch.isfinite(pot).all() and torch.isfinite(grad).all()),
+            "gradient delay path: values not finite")
+    dpm64 = shared_params_lqg_model(x_delay.double(), DelayedSubjectiveActor,
+                                    shared_params=DELAY_SHARED)
+    pot64, grad64 = value_and_grad(dpm64,
+                                   ud.detach().double().requires_grad_())
+    del dpm64
+    pot, pot64 = pot.detach(), pot64.detach()
+    pot_err = float(((pot.double() - pot64) / pot64).abs().max())
+    gmax = float(grad64.abs().max())
+    grad_rel = (grad.double() - grad64).abs() / grad64.abs()
+    grad_scaled = float((grad.double() - grad64).abs().max()) / gmax
+    log(f"gradient delay path vs float64 scan on the card: value rel err "
+        f"{pot_err:.3e} (rtol {DELAY_POT_RTOL}) of |U| ~ "
+        f"{float(pot64.abs().mean()):.1f}; gradient rel err max "
+        f"{float(grad_rel.max()):.3e}, median {float(grad_rel.median()):.3e};"
+        f" max abs err / max|grad| {grad_scaled:.3e} (each component within "
+        f"{DELAY_GRAD_RTOL} of itself + {DELAY_GRAD_SCALED} of the largest); "
+        f"|grad| from {float(grad64.abs().min()):.4g} to {gmax:.4g}")
+    require(within(pot.double(), pot64, DELAY_POT_RTOL, 0.0),
+            f"gradient delay path value vs float64: {pot_err}")
+    require(within(grad.double(), grad64, DELAY_GRAD_RTOL,
+                   DELAY_GRAD_SCALED * gmax),
+            f"gradient delay path gradient vs float64: rel "
+            f"{float(grad_rel.max())}, scaled {grad_scaled}")
+
+    def delay_grad_path():
+        value_and_grad(dpm, ud)
+
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        delay_grad_path()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    log(f"gradient delay path warm, host clock: median "
+        f"{statistics.median(warm):.4f} s of {[round(w, 4) for w in warm]}")
+    wall, busy, n_events, named = profile_ms(
+        delay_grad_path, ("ll_blocked_fwd", "ll_blocked_bwd"))
+    if n_events:
+        log(f"gradient delay path under torch.profiler: wall {wall:.1f} ms, "
+            f"device busy {busy:.2f} ms ({100 * busy / wall:.2f}% of wall) "
+            f"over {n_events} device events; "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in named.items()))
+    else:
+        log("gradient delay path under torch.profiler: no device events "
+            "recorded; device busy share not measured")
+    del dpm, pot, grad, pot64, grad64
+    torch.cuda.empty_cache()
+
+    # 11. the (3, 1, 2) and (5, 2) instances, through SubjectiveActor
+    P3 = CHAINS * CONDITIONS
+    svn = torch.linspace(0.3, 4.0, P3, device=dev)
+    subj = SubjectiveActor(T=T, subj_vel_noise=svn, device=dev)
+    sp3 = subj.actor
+    VV3 = sp3.V @ mT(sp3.V)
+    ins3 = [x.expand((P3,) + x.shape[-2:]).contiguous() for x in (
+        sp3.A, sp3.B, sp3.Q, sp3.R, sp3.Qf, sp3.F, VV3, sp3.W @ mT(sp3.W),
+        VV3)]
+    out = gains_fwd(*ins3, T, stores=True)
+    ref = fused_gains_reference(sp3, ins3[-1], T, stores=True)
+    torch.cuda.synchronize()
+    i1_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    require(all(within(a, b, 0.0, GAINS_ATOL)
+                for a, b in zip(out[:3], ref[:3]))
+            and all(within(a, b, K2_RTOL, K2_ATOL)
+                    for a, b in zip(out[3:], ref[3:])),
+            f"K1 (3, 1, 2) vs plain: {i1_err}")
+    cots = [0.3 * torch.randn(x.shape, generator=g2, device=dev)
+            for x in out[:3]]
+    A3, Bm3, _, R3, _, F3, VV3, WW3, _ = ins3
+    args = (A3, Bm3, R3, F3, VV3, WW3, *out[3:], *cots)
+    got = fused_gains_vjp(*args)
+    want = fused_gains_vjp_reference(*args)
+    torch.cuda.synchronize()
+    i2_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    require(all(within(a, b, K2_RTOL,
+                       K2_ATOL + K2_SCALE * float(b.abs().max()))
+                for a, b in zip(got, want)), f"K2 (3, 1, 2) vs plain: {i2_err}")
+    joint = subj._joint()
+    F3j, Q3j = (torch.movedim(M, 0, 1).contiguous()
+                for M in (joint.F, joint.G @ mT(joint.G)))
+    xs = SubjectiveActor(T=T, device=dev).simulate(g2, n=LL_TRIALS)
+    X3 = xs.expand(P3, *xs.shape).contiguous()
+    ll3, *st3 = ll_fwd(F3j, Q3j, X3, stores=True)
+    ll3_ref, *st3_ref = conditioned_log_likelihood_reference(F3j, Q3j, X3,
+                                                             stores=True)
+    torch.cuda.synchronize()
+    i3_err = float((ll3 - ll3_ref).abs().max())
+    require(within(ll3, ll3_ref, LL_RTOL, LL_ATOL)
+            and all(within(a, b, LL_RTOL, LL_ATOL)
+                    for a, b in zip(st3, st3_ref)),
+            f"K3 (5, 2) vs plain: {i3_err}")
+    args = (F3j, X3, torch.randn(ll3.shape, generator=g2, device=dev), *st3)
+    got = conditioned_log_likelihood_vjp(*args)
+    want = conditioned_log_likelihood_vjp_reference(*args)
+    torch.cuda.synchronize()
+    i4_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    require(all(within(a, b, K4_RTOL, atol + K2_SCALE * float(b.abs().max()))
+                for a, b, atol in zip(got, want, (K4_FQ_ATOL, K4_FQ_ATOL,
+                                                  K4_X_ATOL))),
+            f"K4 (5, 2) vs plain: {i4_err}")
+    k4_inst_ms = cuda_ms(lambda: conditioned_log_likelihood_vjp(*args),
+                         runs=3, launches=5)
+    for fn in all_counters:
+        fn.launches = 0
+    svn_leaf = svn.clone().requires_grad_()
+    ll_s = SubjectiveActor(T=T, subj_vel_noise=svn_leaf,
+                           device=dev).log_likelihood(xs)
+    (g_s,) = torch.autograd.grad(ll_s.sum(), svn_leaf)
+    torch.cuda.synchronize()
+    inst_launches = {k: fn.launches for k, fn in zip(all_names, all_counters)}
+    require(all(inst_launches[k] == 1 for k in names)
+            and bool(torch.isfinite(g_s).all()),
+            f"SubjectiveActor value+grad: K1-K4 once each, got "
+            f"{inst_launches}")
+    log(f"instances through SubjectiveActor at P={P3}, n={LL_TRIALS}, T={T}: "
+        f"max abs err vs plain K1 (3, 1, 2) {i1_err:.3e}, K2 {i2_err:.3e}, "
+        f"K3 (5, 2) {i3_err:.3e}, K4 {i4_err:.3e}; K4 (5, 2) {k4_inst_ms:.4f} "
+        f"ms; value+grad launches {inst_launches}")
+    del out, ref, got, want, args, st3, st3_ref, joint
+    torch.cuda.empty_cache()
+
+    # 12. times
     # each kernel timed through its launching function on prepared inputs
     # (the public wrappers add host work: K1's is host-bound at this shape)
     VV1 = spec.V @ mT(spec.V)
@@ -557,6 +934,22 @@ def main() -> int:
     k2_bound, k2_by = bound(gains_bwd_work(CHAINS * CONDITIONS, 2, 1, 2,
                                            T_FIT))
     k4_bound, k4_by = bound(ll_bwd_work(F4.shape[0], LL_TRIALS, 4, 2))
+    P5 = F5.shape[0]
+    k5_ms = cuda_ms(lambda: ll_blocked_fwd(F5, Q5, X5), runs=5, launches=5)
+    k5_stores_ms = cuda_ms(lambda: ll_blocked_fwd(F5, Q5, X5, stores=True),
+                           runs=5, launches=5)
+    k5_plain = cuda_ms(
+        lambda: conditioned_log_likelihood_blocked_reference(F5, Q5, X5),
+        runs=3, launches=1)
+    k6_ms = cuda_ms(lambda: conditioned_log_likelihood_blocked_vjp(*k6_args),
+                    runs=5, launches=5)
+    k6_plain = cuda_ms(
+        lambda: conditioned_log_likelihood_blocked_vjp_reference(*k6_args),
+        runs=3, launches=1)
+    k5_work = ll_blocked_work(P5, LL_TRIALS, J5, 2, T_FIT)
+    k6_work = ll_blocked_bwd_work(P5, LL_TRIALS, J5, 2, T_FIT)
+    k5_bound, k5_by = bound(k5_work)
+    k6_bound, k6_by = bound(k6_work)
     log(f"[{card}] K1 gains_fwd B={B} T={T}: {k1_ms:.4f} ms "
         f"({B / (k1_ms / 1e3):.1f} solves/s); through fused_gains "
         f"{k1_wrapper_ms:.4f} ms; plain {k1_plain:.2f} ms; bound "
@@ -570,6 +963,18 @@ def main() -> int:
         f"{k4_ms:.4f} ms (with the wrapper's sum over trials); plain "
         f"{k4_plain:.2f} ms; bound {k4_bound:.5f} ms ({k4_by}); launches per "
         f"value+grad {grad_launches['ll_bwd']}")
+
+    log(f"[{card}] K5 ll_blocked_fwd P={P5} n={LL_TRIALS} T={T_FIT} j={J5}: "
+        f"{k5_ms:.4f} ms ({k5_work[1] / k5_ms / 1e9:.3f} TFLOP/s); with the "
+        f"stores {k5_stores_ms:.4f} ms; plain "
+        f"{k5_plain:.2f} ms; bound {k5_bound:.4f} ms ({k5_by}; "
+        f"{k5_work[0] / 1e6:.1f} MB, {k5_work[1] / 1e9:.2f} GFLOP); launches "
+        f"on the forward delay path {delay_launches['ll_blocked_fwd']}")
+    log(f"[{card}] K6 ll_blocked_bwd P={P5} n={LL_TRIALS} T={T_FIT} j={J5}: "
+        f"{k6_ms:.4f} ms ({k6_work[1] / k6_ms / 1e9:.3f} TFLOP/s); plain "
+        f"{k6_plain:.2f} ms; bound {k6_bound:.4f} ms ({k6_by}; "
+        f"{k6_work[0] / 1e6:.1f} MB, {k6_work[1] / 1e9:.2f} GFLOP); launches "
+        f"per value+grad {dgrad_launches['ll_blocked_bwd']}")
 
     kernels = [
         {"name": "gains_fwd", "route": "cuda",
@@ -596,6 +1001,18 @@ def main() -> int:
          "launches": grad_launches["ll_bwd"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": None},
+        {"name": "ll_blocked_fwd", "route": "cuda",
+         "source": "lqg_tpu_torch/csrc/likelihood_blocked.cu",
+         "replaces": "lqg_tpu/ops/pallas/likelihood_blocked.py:163",
+         "launches": delay_launches["ll_blocked_fwd"], "max_abs_err": k5_err,
+         "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
+         "bound_by": k5_by, "library_ms": None},
+        {"name": "ll_blocked_bwd", "route": "cuda",
+         "source": "lqg_tpu_torch/csrc/likelihood_blocked.cu",
+         "replaces": "lqg_tpu/ops/pallas/likelihood_blocked.py:245",
+         "launches": dgrad_launches["ll_blocked_bwd"], "max_abs_err": k6_err,
+         "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": k6_bound,
+         "bound_by": k6_by, "library_ms": None},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

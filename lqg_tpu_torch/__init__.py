@@ -9,7 +9,10 @@ caller names another device.
 The slices so far cover the main path of the tracking models:
 ``BoundedActor(...)`` -> ``simulate`` -> ``log_likelihood``, and its
 gradient up to the potential of the (hierarchical) inference models in
-:mod:`lqg_tpu_torch.infer` (``shared_params_lqg_model(...).potential``).
+:mod:`lqg_tpu_torch.infer` (``shared_params_lqg_model(...).potential``);
+and the same path for the subjective actor and the delay-register family
+(``SubjectiveActor``, ``TemporalDelayModel``, ``DelayedSubjectiveActor``),
+whose large joint state goes through the blocked likelihood kernels.
 """
 
 __version__ = "0.1.0"

@@ -415,6 +415,9 @@ extern "C" int lqg_gains_fwd(const float* A, const float* B, const float* Q,
   else if (n == 2 && m == 1 && p == 1)
     launch_fwd<2, 1, 1>(A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st,
                         batch, T, eps, s);
+  else if (n == 3 && m == 1 && p == 2)
+    launch_fwd<3, 1, 2>(A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st,
+                        batch, T, eps, s);
   else
     return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());
@@ -437,6 +440,10 @@ extern "C" int lqg_gains_bwd(const float* A, const float* B, const float* R,
                         batch, T, eps, s);
   else if (n == 2 && m == 1 && p == 1)
     launch_bwd<2, 1, 1>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar, Abar,
+                        Bbar, Qbar, Rbar, Qfbar, Fbar, VVbar, WWbar, S0bar,
+                        batch, T, eps, s);
+  else if (n == 3 && m == 1 && p == 2)
+    launch_bwd<3, 1, 2>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar, Abar,
                         Bbar, Qbar, Rbar, Qfbar, Fbar, VVbar, WWbar, S0bar,
                         batch, T, eps, s);
   else

@@ -329,6 +329,12 @@ extern "C" int lqg_ll_fwd(const float* F, const float* Q, const float* X,
   else if (j == 4 && d == 2)
     ll_fwd<4, 2, false><<<blocks, kThreads, 0, s>>>(
         F, Q, X, ll, nullptr, nullptr, P, n, T, eps, log2pi_term);
+  else if (j == 5 && d == 2 && Sig_st != nullptr)
+    ll_fwd<5, 2, true><<<blocks, kThreads, 0, s>>>(F, Q, X, ll, Sig_st, mu_st,
+                                                   P, n, T, eps, log2pi_term);
+  else if (j == 5 && d == 2)
+    ll_fwd<5, 2, false><<<blocks, kThreads, 0, s>>>(
+        F, Q, X, ll, nullptr, nullptr, P, n, T, eps, log2pi_term);
   else
     return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());
@@ -343,6 +349,9 @@ extern "C" int lqg_ll_bwd(const float* F, const float* X, const float* w,
   const int blocks = (P * n + kThreads - 1) / kThreads;
   if (j == 4 && d == 2)
     ll_bwd<4, 2><<<blocks, kThreads, 0, s>>>(F, X, w, Sig_st, mu_st, Fbar,
+                                             Qbar, Xbar, P, n, T, eps);
+  else if (j == 5 && d == 2)
+    ll_bwd<5, 2><<<blocks, kThreads, 0, s>>>(F, X, w, Sig_st, mu_st, Fbar,
                                              Qbar, Xbar, P, n, T, eps);
   else
     return cudaErrorInvalidValue;

@@ -7,5 +7,13 @@ in a ``torch.autograd.Function``.
   its adjoint (replaces ``gains.py:_gains_adjoint_kernel``);
 * :mod:`~lqg_tpu_torch.ops.kernels.likelihood`: K3, fused conditioned
   likelihood (replaces ``lqg_tpu/ops/pallas/likelihood.py:_ll_fwd_kernel``),
-  and K4, its adjoint (replaces ``likelihood.py:_ll_bwd_kernel``).
+  and K4, its adjoint (replaces ``likelihood.py:_ll_bwd_kernel``);
+* :mod:`~lqg_tpu_torch.ops.kernels.likelihood_blocked`: K5, the same
+  likelihood on whole matrices for joint dims 13 to 128, the delay-register
+  models (replaces
+  ``lqg_tpu/ops/pallas/likelihood_blocked.py:_ll_blocked_kernel``), and K6,
+  its adjoint (replaces ``likelihood_blocked.py:_ll_blocked_bwd_kernel``).
+
+Every function of the JAX package that reaches ``pl.pallas_call`` has its
+counterpart here.
 """

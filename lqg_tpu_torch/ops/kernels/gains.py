@@ -59,8 +59,9 @@ from lqg_tpu_torch.ops.kernels import nvcc
 EPS = 1e-12  # added to every determinant before its reciprocal
 
 # (n, m, p) instantiated in csrc/gains.cu: the dim=1 tracking models
-# (BoundedActor, OptimalActor: (2, 1, 2); RelativeObservation: (2, 1, 1))
-INSTANCES = frozenset({(2, 1, 2), (2, 1, 1)})
+# (BoundedActor, OptimalActor: (2, 1, 2); RelativeObservation: (2, 1, 1);
+# the SubjectiveActor's 3-state internal model: (3, 1, 2))
+INSTANCES = frozenset({(2, 1, 2), (2, 1, 1), (3, 1, 2)})
 
 
 def _sym(M: torch.Tensor) -> torch.Tensor:

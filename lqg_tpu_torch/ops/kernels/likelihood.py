@@ -58,7 +58,8 @@ from lqg_tpu_torch.ops.kernels.gains import EPS, _on_card, _sym, _sym_inv_det
 _LOG_2PI = math.log(2.0 * math.pi)
 
 # (j, d) instantiated in csrc/likelihood.cu: every dim=1 tracking model
-INSTANCES = frozenset({(4, 2)})
+# (4, 2), and the SubjectiveActor's 2 + 3 joint states (5, 2)
+INSTANCES = frozenset({(4, 2), (5, 2)})
 
 
 def _neumaier_add(s, comp, v):

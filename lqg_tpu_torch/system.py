@@ -7,8 +7,11 @@ set.  Dispatch between the hand-written kernels and the scans is explicit:
 ``method="auto"`` picks a kernel exactly where the JAX package picks its
 Pallas kernel on a TPU - a CUDA float32 tensor, a spec in the kernel's scope
 with ``zero_affine`` set - whether or not a gradient is needed: each
-kernel's ``torch.autograd.Function`` carries its backward kernel (K2, K4).
-``method="fused"`` or ``"scan"`` forces a path.
+kernel's ``torch.autograd.Function`` carries its backward kernel (K2, K4,
+K6).  For the likelihood that is the fused kernel where the joint dims fit
+it, else the blocked kernel (the delay-register models, joint dim 13 to
+128), else the scan.  ``method="fused"``, ``"blocked"`` or ``"scan"``
+forces a path.
 
 A stationary spec may carry one leading parameter-set axis ``P`` (the
 tracking models broadcast tensor parameters over it): ``gains`` then
@@ -29,6 +32,8 @@ from lqg_tpu_torch.ops import riccati, kalman, gaussian
 from lqg_tpu_torch.ops.kernels.gains import fused_gains, fused_gains_available
 from lqg_tpu_torch.ops.kernels.likelihood import (
     conditioned_log_likelihood_fused, fused_ll_available)
+from lqg_tpu_torch.ops.kernels.likelihood_blocked import (
+    blocked_ll_available, conditioned_log_likelihood_blocked)
 from lqg_tpu_torch.ops.linalg import mT
 from lqg_tpu_torch.utils import time_stack_spec, stationary_spec
 from lqg_tpu_torch.infer.dists import GaussianSequence, MultivariateNormal
@@ -127,6 +132,14 @@ class System:
         return (x.device.type == "cuda" and F.dim() <= 4
                 and x.dtype == F.dtype
                 and fused_ll_available(F.shape[-1], x.shape[-1], F.dtype))
+
+    def _blocked_ll_ok(self, F: torch.Tensor, x: torch.Tensor) -> bool:
+        """Does ``auto`` take the blocked likelihood kernels (K5, K6) where
+        the fused ones do not apply?"""
+        return (x.device.type == "cuda" and F.dim() <= 4
+                and x.dtype == F.dtype
+                and blocked_ll_available(F.shape[-1], x.shape[-1],
+                                         x.shape[-3], F.dtype))
 
     def gains(self, Sigma0=None, method: str = "auto"):
         """Control gains and Kalman gains from the actor's internal model.
@@ -271,16 +284,15 @@ class System:
         every path.
 
         Args:
-            method: ``"auto"`` (K3 where it applies, else the scan),
-                ``"fused"`` (K3; its plain version on the CPU) or ``"scan"``
+            method: ``"auto"`` (K3 where it applies, else K5 where it
+                applies, else the scan), ``"fused"`` (K3; its plain version
+                on the CPU), ``"blocked"`` (K5, likewise) or ``"scan"``
                 (:func:`gaussian.conditional_kernel` and
-                :func:`gaussian.trial_log_likelihood`).  ``"blocked"`` and
-                ``"pscan"`` are not ported yet.
+                :func:`gaussian.trial_log_likelihood`).  ``"pscan"`` is not
+                ported yet.
         """
         d = x.shape[-1]
         self._check_obs(x)
-        if method == "blocked":
-            raise _not_ported(method, "item 9, kernel K5")
         if method == "pscan":
             raise _not_ported(method, "item 14")
         # trajectories shared by the parameter sets: autograd sums along P
@@ -288,17 +300,21 @@ class System:
                      + x.shape[-3:])
         joint = self._joint(Sigma0)
         if method == "auto":
-            method = "fused" if self._fused_ll_ok(joint.F, x) else "scan"
-        if method == "fused":
+            method = ("fused" if self._fused_ll_ok(joint.F, x)
+                      else "blocked" if self._blocked_ll_ok(joint.F, x)
+                      else "scan")
+        if method in ("fused", "blocked"):
+            kernel = (conditioned_log_likelihood_fused if method == "fused"
+                      else conditioned_log_likelihood_blocked)
             one = joint.F.dim() == 3  # unbatched: a batch of one
             F = joint.F[:, None] if one else joint.F
             G = joint.G[:, None] if one else joint.G
             F, Q = (torch.movedim(M, 0, 1) for M in (F, G @ mT(G)))
-            ll = conditioned_log_likelihood_fused(F, Q, x[None] if one else x)
+            ll = kernel(F, Q, x[None] if one else x)
             return ll[0] if one else ll
         if method != "scan":
             raise ValueError(
-                f"method must be auto|fused|scan, got {method!r}")
+                f"method must be auto|fused|blocked|scan, got {method!r}")
         kernel = gaussian.conditional_kernel(joint, d)
         return gaussian.trial_log_likelihood(kernel, x)
 

@@ -170,10 +170,12 @@ def test_methods_not_ported_raise():
     for method in ("sqrt", "steady"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             m.gains(method=method)
-    for method in ("pscan", "blocked"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            m.log_likelihood(x, method=method)
-    with pytest.raises(ValueError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.log_likelihood(x, method="pscan")
+    # "blocked" is ported: the bounded actor's j = 4 is outside its scope
+    with pytest.raises(ValueError, match="scope"):
+        m.log_likelihood(x, method="blocked")
+    with pytest.raises(ValueError, match="auto|fused|blocked|scan"):
         m.log_likelihood(x, method="bogus")
 
 

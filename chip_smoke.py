@@ -20,8 +20,8 @@ beside it.  Phases, each fatal on failure:
    of one call under ``torch.profiler``;
 6. K1's stores and K2 (gains adjoint) against their plain versions at the
    potential's 24 specs at T=1008 and at 2,048 specs at T=719 (prime), on
-   random cotangents; K3's stores and K4 (likelihood adjoint) at 24 sets x
-   20 trials at T=1008;
+   random cotangents; K3's stores (per set) and K4 (likelihood adjoint) at
+   24 sets x 20 trials at T=1008, and two K4 launches bit for bit;
 7. the gradient path: the hierarchical potential
    ``shared_params_lqg_model(x, BoundedActor, ...)`` of 6 conditions x 20
    simulated trials at T=1008 (the data.mat shape), value and gradient for
@@ -46,7 +46,8 @@ beside it.  Phases, each fatal on failure:
     time and the device's busy share;
 11. the (3, 1, 2) instances of K1/K2 and the (5, 2) instances of K3/K4
     against their plain versions through ``SubjectiveActor``, and its value
-    and gradient through the entry points (K1-K4 once each);
+    and gradient through the entry points (K1-K4 once each); K3 (both
+    variants) and K4 timed at (5, 2);
 12. times from CUDA events (warmed, median of 7 runs of 20 launches; fewer
     for K5, K6 and the plain versions, which take ~0.5-3 s a call) beside
     each kernel's bound.
@@ -230,34 +231,44 @@ def gains_bwd_work(B, n, m, p, T):
     return (inputs + outputs) * 4, T * B * (riccati + kalman)
 
 
-def ll_work(P, n, j, d):
-    """(bytes, operations) of K3 for P sets x n trials over T steps."""
-    score = INV_OPS[d] + d + mm(d, d, 1) + (2 * d - 1)
-    neumaier = 6
-    step = (score + 2 * (1 + neumaier) + 1 + mm(j, j, j) + mm(j, d, d)
-            + mm(j, j, 1) + mm(j, d, 1) + j + mm(j, j, j) + mm(j, d, j)
-            + 2 * j * j + 2 * j * j)
-    final = score + 7
-    inputs = (2 * P * T * j * j + P * n * (T + 1) * d) * 4
-    return inputs + P * n * 4, P * n * (T * step + final)
+def ll_work(P, n, j, d, T, stores=False):
+    """(bytes, operations) of K3 for P sets x n trials over T steps: F, Q
+    and the data read once, ll written once (with ``stores``, also Sigma_t
+    once per set and mu_t per trial); the covariance recursion counted once
+    per set, the mean and the quadratic form per trial."""
+    neumaier = 7
+    cov = (INV_OPS[d] + 1 + neumaier + 2 * mm(j, j, j) + mm(j, d, d)
+           + mm(j, d, j) + 4 * j * j)
+    trial = (d + mm(d, d, 1) + (2 * d - 1) + neumaier + mm(j, j, 1)
+             + mm(j, d, 1) + j)
+    final = P * (INV_OPS[d] + 1) + P * n * (d + mm(d, d, 1) + 2 * d + 5)
+    nbytes = 2 * P * T * j * j + P * n * (T + 1) * d + P * n
+    if stores:
+        nbytes += P * (T + 1) * (j * j + j * n)
+    return nbytes * 4, T * (P * cov + P * n * trial) + final
 
 
-def ll_bwd_work(P, n, j, d):
-    """(bytes, operations) of K4 for P sets x n trials over T_FIT steps: F,
-    the data, the cotangent and K3's stores read once, F-bar and Q-bar
-    (summed over trials) and the data cotangent written once."""
-    T = T_FIT
-    step = (INV_OPS[d] + d + mm(j, j, j) + mm(j, d, d) + 2 * j * j
-            + 2 * mm(j, j, j) + 2 * j * j + 2 * mm(j, j, d) + 5 * j * d
-            + mm(j, d, d) + mm(d, j, d) + mm(d, j, 1) + 3 + mm(d, d, 1)
-            + 2 * d + 3 * d * d + 2 * mm(d, d, d) + 3 * d * d
-            + mm(j, j, 1) + 3 * d + j * d + 2 * mm(j, j, j) + j * j
-            + 3 * d * d + 4 * j * j)
-    seed = INV_OPS[d] + d + mm(d, d, 1) + 2 * d + 4 * d * d
-    inputs = (P * T * j * j + P * n * (T + 1) * d + P * n
-              + P * n * (T + 1) * (j * j + j))
-    outputs = 2 * P * T * j * j + P * n * (T + 1) * d
-    return (inputs + outputs) * 4, P * n * (T * step + seed)
+def ll_bwd_work(P, n, j, d, T):
+    """(bytes, operations) of K4 for P sets x n trials over T steps: F, the
+    data, the cotangent and K3's per-set stores read once, F-bar and Q-bar
+    (per set) and the data cotangent written once; the recomputed
+    covariance pieces and the Sigma-bar chain counted once per set, the
+    mean's cotangent and each trial's share of the four sums per trial."""
+    sums = j * j + j * d + 2 * d * d + 1  # products, then as many adds
+    cov = (INV_OPS[d] + mm(j, j, j) + mm(j, d, d)  # S^-1, FS, J
+           + 2 * j * j + 3 * mm(j, j, j) + j * j + j * d  # Sbn, Sbn F, Sbn FS
+           + mm(j, j, d) + mm(j, d, d) + 2 * j * d  # P-bar
+           + mm(j, j, j) + j * j + mm(j, j, j)  # FS-bar Sigma, F^T FS-bar
+           + mm(d, j, d) + 2 * d * d + 2 * mm(d, d, d) + 3 * d * d
+           + 3 * d * d)
+    trial = (d + mm(d, d, 1) + 1 + 2 * sums + mm(d, j, 1) + 2 * d
+             + mm(j, j, 1) + d)
+    seed = (P * (INV_OPS[d] + 2 * d * d)
+            + P * n * (d + mm(d, d, 1) + 2 * d * d + 3 * d))
+    nbytes = (P * T * j * j + P * n * (T + 1) * d + P * n
+              + P * (T + 1) * (j * j + j * n)
+              + 2 * P * T * j * j + P * n * (T + 1) * d)
+    return nbytes * 4, T * (P * cov + P * n * trial) + seed
 
 
 def _blocked_common(n, j, d):
@@ -548,9 +559,16 @@ def main() -> int:
             f"K3 stores vs plain: {st_err}")
     w4 = torch.randn(ll4.shape, generator=g2, device=dev)
     k4_args = (F4, X4, w4, *st4)
+    require(st4[0].shape == (F4.shape[0], T_FIT + 1, 4, 4)
+            and st4[1].shape == (F4.shape[0], T_FIT + 1, 4, LL_TRIALS),
+            f"K3 stores: per-set layout expected, got "
+            f"{[tuple(a.shape) for a in st4]}")
     got = conditioned_log_likelihood_vjp(*k4_args)
+    again = conditioned_log_likelihood_vjp(*k4_args)
     want = conditioned_log_likelihood_vjp_reference(*k4_args)
     torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            "K4: two launches differ")
     k4_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     log(f"K3 stores vs plain at P={F4.shape[0]}, n={LL_TRIALS}, T={T_FIT}: "
         f"max abs err {st_err:.3e}; K4 vs plain: max abs err "
@@ -624,7 +642,9 @@ def main() -> int:
         log(f"gradient path under torch.profiler: wall {wall:.2f} ms, device "
             f"busy {busy:.3f} ms ({100 * busy / wall:.2f}% of wall) over "
             f"{n_events} device events; "
-            + ", ".join(f"{k} {v:.3f} ms" for k, v in named.items()))
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in named.items())
+            + f"; the other {n_events - len(named)} ops "
+            f"{busy - sum(named.values()):.3f} ms")
     else:
         log("gradient path under torch.profiler: no device events recorded; "
             "device busy share not measured")
@@ -887,8 +907,12 @@ def main() -> int:
                 for a, b, atol in zip(got, want, (K4_FQ_ATOL, K4_FQ_ATOL,
                                                   K4_X_ATOL))),
             f"K4 (5, 2) vs plain: {i4_err}")
-    k4_inst_ms = cuda_ms(lambda: conditioned_log_likelihood_vjp(*args),
-                         runs=3, launches=5)
+    k4_inst_ms = cuda_ms(lambda: conditioned_log_likelihood_vjp(*args))
+    k3_inst_ms = cuda_ms(lambda: ll_fwd(F3j, Q3j, X3))
+    k3_inst_stores_ms = cuda_ms(lambda: ll_fwd(F3j, Q3j, X3, stores=True))
+    inst_bounds = (bound(ll_work(P3, LL_TRIALS, 5, 2, T)),
+                   bound(ll_work(P3, LL_TRIALS, 5, 2, T, stores=True)),
+                   bound(ll_bwd_work(P3, LL_TRIALS, 5, 2, T)))
     for fn in all_counters:
         fn.launches = 0
     svn_leaf = svn.clone().requires_grad_()
@@ -903,8 +927,13 @@ def main() -> int:
             f"{inst_launches}")
     log(f"instances through SubjectiveActor at P={P3}, n={LL_TRIALS}, T={T}: "
         f"max abs err vs plain K1 (3, 1, 2) {i1_err:.3e}, K2 {i2_err:.3e}, "
-        f"K3 (5, 2) {i3_err:.3e}, K4 {i4_err:.3e}; K4 (5, 2) {k4_inst_ms:.4f} "
-        f"ms; value+grad launches {inst_launches}")
+        f"K3 (5, 2) {i3_err:.3e}, K4 {i4_err:.3e}; value+grad launches "
+        f"{inst_launches}")
+    log(f"[{card}] (5, 2) at P={P3} n={LL_TRIALS} T={T}: K3 {k3_inst_ms:.4f} "
+        f"ms (bound {inst_bounds[0][0]:.5f}, {inst_bounds[0][1]}), with the "
+        f"stores {k3_inst_stores_ms:.4f} ms (bound {inst_bounds[1][0]:.5f}, "
+        f"{inst_bounds[1][1]}), K4 {k4_inst_ms:.4f} ms (bound "
+        f"{inst_bounds[2][0]:.5f}, {inst_bounds[2][1]})")
     del out, ref, got, want, args, st3, st3_ref, joint
     torch.cuda.empty_cache()
 
@@ -920,10 +949,13 @@ def main() -> int:
     k1_plain = cuda_ms(lambda: fused_gains_reference(spec, S0, T),
                        launches=3)
     k3_ms = cuda_ms(lambda: ll_fwd(F, Q, X))
+    k3_stores_ms = cuda_ms(lambda: ll_fwd(F, Q, X, stores=True))
     k3_plain = cuda_ms(
         lambda: conditioned_log_likelihood_reference(F, Q, X), launches=3)
     k1_bound, k1_by = bound(gains_work(B, 2, 1, 2))
-    k3_bound, k3_by = bound(ll_work(LL_SETS, LL_TRIALS, 4, 2))
+    k3_bound, k3_by = bound(ll_work(LL_SETS, LL_TRIALS, 4, 2, T))
+    k3_st_bound, k3_st_by = bound(ll_work(LL_SETS, LL_TRIALS, 4, 2, T,
+                                          stores=True))
     k2_ms = cuda_ms(lambda: fused_gains_vjp(*k2_inputs))
     k2_plain = cuda_ms(lambda: fused_gains_vjp_reference(*k2_inputs), runs=3,
                        launches=1)
@@ -933,7 +965,8 @@ def main() -> int:
         launches=1)
     k2_bound, k2_by = bound(gains_bwd_work(CHAINS * CONDITIONS, 2, 1, 2,
                                            T_FIT))
-    k4_bound, k4_by = bound(ll_bwd_work(F4.shape[0], LL_TRIALS, 4, 2))
+    k4_bound, k4_by = bound(ll_bwd_work(F4.shape[0], LL_TRIALS, 4, 2,
+                                        T_FIT))
     P5 = F5.shape[0]
     k5_ms = cuda_ms(lambda: ll_blocked_fwd(F5, Q5, X5), runs=5, launches=5)
     k5_stores_ms = cuda_ms(lambda: ll_blocked_fwd(F5, Q5, X5, stores=True),
@@ -955,12 +988,14 @@ def main() -> int:
         f"{k1_wrapper_ms:.4f} ms; plain {k1_plain:.2f} ms; bound "
         f"{k1_bound:.4f} ms ({k1_by})")
     log(f"[{card}] K3 ll_fwd P={LL_SETS} n={LL_TRIALS} T={T}: {k3_ms:.4f} ms;"
-        f" plain {k3_plain:.2f} ms; bound {k3_bound:.5f} ms ({k3_by})")
+        f" plain {k3_plain:.2f} ms; bound {k3_bound:.5f} ms ({k3_by}); with "
+        f"the stores {k3_stores_ms:.4f} ms, bound {k3_st_bound:.5f} ms "
+        f"({k3_st_by})")
     log(f"[{card}] K2 gains_bwd B={CHAINS * CONDITIONS} T={T_FIT}: "
         f"{k2_ms:.4f} ms; plain {k2_plain:.2f} ms; bound {k2_bound:.6f} ms "
         f"({k2_by}); launches per value+grad {grad_launches['gains_bwd']}")
     log(f"[{card}] K4 ll_bwd P={F4.shape[0]} n={LL_TRIALS} T={T_FIT}: "
-        f"{k4_ms:.4f} ms (with the wrapper's sum over trials); plain "
+        f"{k4_ms:.4f} ms; plain "
         f"{k4_plain:.2f} ms; bound {k4_bound:.5f} ms ({k4_by}); launches per "
         f"value+grad {grad_launches['ll_bwd']}")
 

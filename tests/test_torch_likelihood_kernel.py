@@ -1,8 +1,11 @@
 """K3, the fused likelihood kernel of the port.
 
 On the CPU: the plain PyTorch version against the JAX package's Pallas
-kernel in interpret mode (float32), and the wrapper's checks.  On a card
-(``-m cuda``): the CUDA kernel against the plain version.  JAX is imported
+kernel in interpret mode (float32) and against the per-lane formulation
+(every trial running the covariance recursion itself, float64), and the
+wrapper's checks.  On a card (``-m cuda``): the CUDA kernel against the
+plain version, with one trial, with more trials than a block has trial
+threads, and at (j, d) = (5, 2).  JAX is imported
 inside the tests that use it, so that the card's tests collect where JAX
 is not installed.
 """
@@ -11,10 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from lqg_tpu_torch.models import BoundedActor
+import torch.nn.functional as nnf
+
+from lqg_tpu_torch.models import BoundedActor, SubjectiveActor
+from lqg_tpu_torch.ops.kernels.gains import _sym, _sym_inv_det
 from lqg_tpu_torch.ops.kernels.likelihood import (
-    conditioned_log_likelihood_fused, conditioned_log_likelihood_reference,
-    fused_ll_available)
+    _LOG_2PI, _neumaier_add, conditioned_log_likelihood_fused,
+    conditioned_log_likelihood_reference, fused_ll_available, ll_fwd,
+    trial_threads)
 from lqg_tpu_torch.ops import gaussian
 from lqg_tpu_torch.ops.linalg import mT
 
@@ -37,6 +44,86 @@ def _inputs(P, n, T, seed=0):
     X = np.cumsum(np.random.default_rng(seed).normal(size=(P, n, T + 1, 2)),
                   axis=2).astype(np.float32)
     return np.stack(Fs), np.stack(Qs), X
+
+
+def _port_case(j, P, n, T, seed=0, device="cpu", dtype=torch.float64):
+    """F, Q of P port models of joint dim j (4: BoundedActor, 5:
+    SubjectiveActor) with spread parameters, and n random-walk trials
+    each, drawn with numpy."""
+    model = BoundedActor if j == 4 else SubjectiveActor
+    Fs, Qs = [], []
+    for k in range(P):
+        joint = model(T=T, sigma_target=3.0 + 2.0 * k,
+                      action_cost=0.5 + 0.3 * k, device=device,
+                      dtype=dtype)._joint()
+        Fs.append(joint.F)
+        Qs.append(joint.G @ mT(joint.G))
+    X = np.cumsum(np.random.default_rng(seed).normal(size=(P, n, T + 1, 2)),
+                  axis=2)
+    return (torch.stack(Fs), torch.stack(Qs),
+            torch.tensor(X, dtype=dtype, device=device))
+
+
+def _per_lane_reference(F, Q, X):
+    """K3 before the split: every (set, trial) lane runs the covariance
+    recursion itself.  Returns ``ll (P, n)`` and the per-lane carries
+    ``Sigma_t (P, n, T+1, j, j)`` and ``mu_t (P, n, T+1, j)``."""
+    P_, T, j, _ = F.shape
+    n, d = X.shape[1], X.shape[-1]
+    Fl, Ql = F[:, None], Q[:, None]
+    Sigma = Ql[:, :, 0].expand(P_, n, j, j)
+    mu = nnf.pad(X[:, :, 0], (0, j - d))
+    quad_acc = ld_acc = quad_c = ld_c = X.new_zeros((P_, n))
+
+    def score(Sigma, mu, x):
+        Sinv, det = _sym_inv_det(Sigma[..., :d, :d])
+        e = x - mu[..., :d]
+        Se = (Sinv @ e[..., None])[..., 0]
+        quad = e[..., 0] * Se[..., 0]
+        for r in range(1, d):
+            quad = quad + e[..., r] * Se[..., r]
+        return quad, det, Sinv, e
+
+    Sigmas, mus = [], []
+    for t in range(T):
+        Sigmas.append(Sigma)
+        mus.append(mu)
+        quad, det, Sinv, e = score(Sigma, mu, X[:, :, t])
+        mask = 1.0 if t >= 1 else 0.0
+        quad_acc, quad_c = _neumaier_add(quad_acc, quad_c, mask * quad)
+        ld_acc, ld_c = _neumaier_add(ld_acc, ld_c, mask * torch.log(det))
+        F_t, Q_t = Fl[:, :, t], Ql[:, :, t]
+        FS = F_t @ Sigma
+        Pm = FS[..., :d]
+        J = Pm @ Sinv
+        mu = (F_t @ mu[..., None])[..., 0] + (J @ e[..., None])[..., 0]
+        Sigma = _sym((FS @ mT(F_t) + Q_t) - J @ mT(Pm))
+    Sigmas.append(Sigma)
+    mus.append(mu)
+    quad, det, _, _ = score(Sigma, mu, X[:, :, T])
+    total = (quad_c + ld_c + quad + torch.log(det)) + quad_acc + ld_acc \
+        + T * d * _LOG_2PI
+    return -0.5 * total, torch.stack(Sigmas, 2), torch.stack(mus, 2)
+
+
+@pytest.mark.parametrize("n", [1, 3, 37])
+@pytest.mark.parametrize("j", [4, 5])
+def test_reference_matches_per_lane(j, n):
+    """The covariance recursion once per set gives the per-lane values."""
+    F, Q, X = _port_case(j, P=2, n=n, T=17)
+    ll, Sig, mu = conditioned_log_likelihood_reference(F, Q, X, stores=True)
+    ll_l, Sig_l, mu_l = _per_lane_reference(F, Q, X)
+    assert Sig.shape == (2, 18, j, j) and mu.shape == (2, 18, j, n)
+    torch.testing.assert_close(ll, ll_l, rtol=1e-12, atol=0)
+    for a, b in ((Sig[:, None].expand_as(Sig_l), Sig_l),
+                 (mu.permute(0, 3, 1, 2), mu_l)):
+        torch.testing.assert_close(a, b, rtol=1e-12,
+                                   atol=1e-12 * float(b.abs().max()))
+
+
+def test_trial_threads():
+    assert [trial_threads(n) for n in (1, 20, 32, 33, 128, 129, 300)] == [
+        32, 32, 32, 64, 128, 128, 128]
 
 
 @pytest.fixture
@@ -110,3 +197,21 @@ def test_kernel_matches_reference_on_card(cuda):
     ref = conditioned_log_likelihood_reference(F, Q, X)
     torch.cuda.synchronize()
     torch.testing.assert_close(ll, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j, n", [(4, 1), (4, 300), (5, 20)])
+def test_kernel_variants_match_reference_on_card(cuda, j, n):
+    """One trial; more trials than a block's trial threads (each thread
+    carries three); the (5, 2) instance.  Both variants of K3 and the
+    per-set stores against the plain version."""
+    F, Q, X = _port_case(j, P=3, n=n, T=300, device=cuda,
+                         dtype=torch.float32)
+    ll = ll_fwd(F, Q, X)
+    got = ll_fwd(F, Q, X, stores=True)
+    want = conditioned_log_likelihood_reference(F, Q, X, stores=True)
+    torch.cuda.synchronize()
+    assert got[1].shape == (3, 301, j, j) and got[2].shape == (3, 301, j, n)
+    assert torch.equal(ll, got[0])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)

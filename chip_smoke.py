@@ -29,11 +29,14 @@ beside it.  Phases, each fatal on failure:
    after (K1-K4 once each); against the float64 model on the card (the
    scans); its warm host-clock time and the device's busy share;
 8. K5 (blocked large-j likelihood) and its stores, and K6 (its adjoint) on
-   a random cotangent, against their plain versions at the delay fit's
-   shape: 24 sets of ``DelayedSubjectiveActor`` (j=65, d=2) x 20 trials at
-   T=1008; and at the edge of the scope,
-   ``TemporalDelayModel(SubjectiveActor(dim=2), delay=11)`` (j=120, d=4) at
-   T=40;
+   a random cotangent, against their plain versions at every cluster size
+   (1, 2, 4, 8 blocks a parameter set), K5 the same bits at every size and
+   two K6 launches the same bits, at the delay fit's shape: 24 sets of
+   ``DelayedSubjectiveActor`` (j=65, d=2) x 20 trials at T=1008; and at the
+   edge of the scope, ``TemporalDelayModel(SubjectiveActor(dim=2),
+   delay=11)`` (j=120, d=4) at T=40; then one short n=39 gains scan
+   (``riccati.backward``, ``kalman.forward``, T=8) under
+   ``torch.cuda.set_sync_debug_mode("error")``: the scans wait on nothing;
 9. the forward delay path, ``DelayedSubjectiveActor(T=1008)`` ->
    ``simulate(n=20)`` -> ``log_likelihood(x[..., :2], method="auto")``, K5's
    counter zeroed just before and read just after; against the float64
@@ -50,7 +53,9 @@ beside it.  Phases, each fatal on failure:
     variants) and K4 timed at (5, 2);
 12. times from CUDA events (warmed, median of 7 runs of 20 launches; fewer
     for K5, K6 and the plain versions, which take ~0.5-3 s a call) beside
-    each kernel's bound.
+    each kernel's bound; K5 and K6 at P=24 and at P=1, at one block a set
+    (C=1) and at the wrapper's cluster size, timed in turns, with the SMs
+    they use, TFLOP/s, the whole card's bound and the bound on those SMs.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -157,6 +162,27 @@ def cuda_ms(fn, runs=7, launches=20):
         stop.synchronize()
         times.append(start.elapsed_time(stop) / launches)
     return statistics.median(times)
+
+
+def paired_ms(fn_a, fn_b, rounds=6, launches=5):
+    """Medians over ``rounds`` of the mean time of ``launches`` calls of
+    two functions timed in turns (a b, b a, ...), from CUDA events, after
+    one warm-up call of each."""
+    fn_a()
+    fn_b()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for r in range(rounds):
+        for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(launches):
+                (fn_a, fn_b)[k]()
+            stop.record()
+            stop.synchronize()
+            times[k].append(start.elapsed_time(stop) / launches)
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def profile_ms(fn, names):
@@ -345,6 +371,8 @@ def main() -> int:
         conditioned_log_likelihood_blocked_reference,
         conditioned_log_likelihood_blocked_vjp,
         conditioned_log_likelihood_blocked_vjp_reference, ll_blocked_fwd)
+    from lqg_tpu_torch.ops.kernels import likelihood_blocked as kb
+    from lqg_tpu_torch.ops import kalman, riccati
     from lqg_tpu_torch.ops.linalg import mT
 
     counters = (fused_gains, fused_gains_vjp, conditioned_log_likelihood_fused,
@@ -659,38 +687,55 @@ def main() -> int:
 
     def blocked_against_plain(F_, Q_, X_, what):
         """K5 (both variants), its stores and K6 against their plain
-        versions; returns K5's and K6's max abs errors and K6's inputs."""
-        out = ll_blocked_fwd(F_, Q_, X_, stores=True)
+        versions at every cluster size, K5 the same bits at every size and
+        two K6 launches the same bits; returns K5's and K6's max abs errors
+        (over the sizes) and K6's inputs."""
         ref = conditioned_log_likelihood_blocked_reference(F_, Q_, X_,
                                                            stores=True)
-        ll_free = ll_blocked_fwd(F_, Q_, X_)
-        torch.cuda.synchronize()
-        err5 = float((out[0] - ref[0]).abs().max())
-        st = [scaled_err(a, b) for a, b in zip(out[1:], ref[1:])]
-        require(bool(torch.isfinite(out[0]).all()), f"K5 not finite, {what}")
-        require(within(out[0], ref[0], BLK_RTOL, BLK_ATOL),
-                f"K5 vs plain, {what}: {err5}")
-        require(bool((ll_free == out[0]).all()),
-                f"K5 store-free and stores variants differ, {what}")
-        require(max(st) <= BLK_SCALED, f"K5 stores vs plain, {what}: {st}")
-        w_ = torch.randn(out[0].shape, generator=g2, device=dev)
-        args = (F_, X_, w_, *out[1:])
-        got = conditioned_log_likelihood_blocked_vjp(*args)
-        want = conditioned_log_likelihood_blocked_vjp_reference(*args)
-        torch.cuda.synchronize()
-        err6 = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        sc = [scaled_err(a, b) for a, b in zip(got, want)]
-        log(f"K5 vs plain, {what}: max abs err {err5:.3e} of |ll| ~ "
-            f"{float(ref[0].abs().mean()):.1f} (rtol {BLK_RTOL}, atol "
-            f"{BLK_ATOL}); stores err / max|plain| Sig {st[0]:.3e}, MU "
-            f"{st[1]:.3e}; K6 vs plain err / max|plain| "
-            + ", ".join(f"{k} {e:.3e} (max {float(b.abs().max()):.4g})"
-                        for k, e, b in zip(("Fbar", "Qbar", "Xbar"), sc, want))
-            + f" (all within {BLK_SCALED})")
-        require(all(bool(torch.isfinite(a).all()) for a in got),
-                f"K6 not finite, {what}")
-        require(max(sc) <= BLK_SCALED, f"K6 vs plain, {what}: {sc}")
-        return err5, err6, args
+        w_ = torch.randn(ref[0].shape, generator=g2, device=dev)
+        first, err5, err6 = None, 0.0, 0.0
+        for C in kb.CLUSTERS:
+            out = ll_blocked_fwd(F_, Q_, X_, stores=True, cluster=C)
+            ll_free = ll_blocked_fwd(F_, Q_, X_, cluster=C)
+            torch.cuda.synchronize()
+            e5 = float((out[0] - ref[0]).abs().max())
+            st = [scaled_err(a, b) for a, b in zip(out[1:], ref[1:])]
+            require(bool(torch.isfinite(out[0]).all()),
+                    f"K5 not finite, {what}, C={C}")
+            require(within(out[0], ref[0], BLK_RTOL, BLK_ATOL),
+                    f"K5 vs plain, {what}, C={C}: {e5}")
+            require(bool((ll_free == out[0]).all()),
+                    f"K5 store-free and stores variants differ, {what}, "
+                    f"C={C}")
+            require(max(st) <= BLK_SCALED,
+                    f"K5 stores vs plain, {what}, C={C}: {st}")
+            first = first or out
+            require(all(torch.equal(a, b) for a, b in zip(out, first)),
+                    f"K5 at C={C} is not the bits of C=1, {what}")
+            args = (F_, X_, w_, *out[1:])
+            got = conditioned_log_likelihood_blocked_vjp(*args, cluster=C)
+            again = conditioned_log_likelihood_blocked_vjp(*args, cluster=C)
+            want = conditioned_log_likelihood_blocked_vjp_reference(*args)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"K6: two launches differ, {what}, C={C}")
+            e6 = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            sc = [scaled_err(a, b) for a, b in zip(got, want)]
+            log(f"K5 vs plain, {what}, C={C}: max abs err {e5:.3e} of |ll| ~ "
+                f"{float(ref[0].abs().mean()):.1f} (rtol {BLK_RTOL}, atol "
+                f"{BLK_ATOL}); stores err / max|plain| Sig {st[0]:.3e}, MU "
+                f"{st[1]:.3e}; K6 vs plain err / max|plain| "
+                + ", ".join(f"{k} {e:.3e} (max {float(b.abs().max()):.4g})"
+                            for k, e, b in zip(("Fbar", "Qbar", "Xbar"), sc,
+                                               want))
+                + f" (all within {BLK_SCALED})")
+            require(all(bool(torch.isfinite(a).all()) for a in got),
+                    f"K6 not finite, {what}, C={C}")
+            require(max(sc) <= BLK_SCALED, f"K6 vs plain, {what}, C={C}: {sc}")
+            err5, err6 = max(err5, e5), max(err6, e6)
+        log(f"K5 the same bits at C = {kb.CLUSTERS}, two K6 launches the same "
+            f"bits at each, {what}")
+        return err5, err6, (F_, X_, w_, *first[1:])
 
     # 8. K5, its stores and K6 against their plain versions: the delay
     # fit's 24 parameter sets and its simulated data (phase 10 makes both)
@@ -728,8 +773,29 @@ def main() -> int:
     del Fe, Qe, Xe, joint, m
     torch.cuda.empty_cache()
 
+    # the scans of the n=39 gains make no host synchronization: one short
+    # scan under the sync debug mode, after a warm-up call
+    sm = DelayedSubjectiveActor(T=8, device=dev)
+    S0_scan = sm._default_Sigma0()
+    for debug in ("default", "error"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(debug)
+        try:
+            gains8 = riccati.backward(sm.actor, horizon=8)
+            K8 = kalman.forward(sm.actor, Sigma0=S0_scan, horizon=8)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    require(gains8.L.shape[-1] == 39 and bool(torch.isfinite(gains8.L).all()
+                                             and torch.isfinite(K8).all()),
+            "n=39 scan: gains not finite")
+    log(f"n=39 gains scan (T=8, L {tuple(gains8.L.shape)}, K "
+        f"{tuple(K8.shape)}) under set_sync_debug_mode('error'): no host "
+        f"synchronization")
+
     # 9. the forward delay path, through the entry points a user calls
     conditioned_log_likelihood_blocked.launches = 0
+    conditioned_log_likelihood_blocked.cluster = None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dmodel = DelayedSubjectiveActor(T=T_FIT, device=dev)
@@ -740,9 +806,11 @@ def main() -> int:
     delay_s = time.perf_counter() - t0
     delay_launches = {
         "ll_blocked_fwd": conditioned_log_likelihood_blocked.launches}
+    delay_cluster = conditioned_log_likelihood_blocked.cluster
     log(f"forward delay path: DelayedSubjectiveActor simulate(n={LL_TRIALS}) "
         f"+ log_likelihood at T={T_FIT} in {delay_s:.3f} s (first call, host "
-        f"clock); launches {delay_launches}")
+        f"clock); launches {delay_launches}, K5 on clusters of "
+        f"{delay_cluster} blocks")
     require(delay_launches["ll_blocked_fwd"] > 0,
             f"forward delay path bypassed K5: {delay_launches}")
     require(xd.shape == (LL_TRIALS, T_FIT + 1, 2)
@@ -789,15 +857,21 @@ def main() -> int:
                                  device=dev)).requires_grad_()
     for fn in all_counters:
         fn.launches = 0
+    conditioned_log_likelihood_blocked.cluster = None
+    conditioned_log_likelihood_blocked_vjp.cluster = None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pot, grad = value_and_grad(dpm, ud)
     torch.cuda.synchronize()
     dgrad_s = time.perf_counter() - t0
     dgrad_launches = {k: fn.launches for k, fn in zip(all_names, all_counters)}
+    dgrad_cluster = {"ll_blocked_fwd": conditioned_log_likelihood_blocked.cluster,
+                     "ll_blocked_bwd":
+                         conditioned_log_likelihood_blocked_vjp.cluster}
     log(f"gradient delay path: {CHAINS} chains x {CONDITIONS} conditions x "
         f"{LL_TRIALS} trials at T={T_FIT}, D={ud.shape[-1]}: value+grad in "
-        f"{dgrad_s:.3f} s (first call, host clock); launches {dgrad_launches}")
+        f"{dgrad_s:.3f} s (first call, host clock); launches {dgrad_launches}"
+        f"; cluster sizes {dgrad_cluster}")
     require(dgrad_launches["ll_blocked_fwd"] == 1
             and dgrad_launches["ll_blocked_bwd"] == 1
             and not any(dgrad_launches[k] for k in names),
@@ -968,14 +1042,11 @@ def main() -> int:
     k4_bound, k4_by = bound(ll_bwd_work(F4.shape[0], LL_TRIALS, 4, 2,
                                         T_FIT))
     P5 = F5.shape[0]
-    k5_ms = cuda_ms(lambda: ll_blocked_fwd(F5, Q5, X5), runs=5, launches=5)
     k5_stores_ms = cuda_ms(lambda: ll_blocked_fwd(F5, Q5, X5, stores=True),
                            runs=5, launches=5)
     k5_plain = cuda_ms(
         lambda: conditioned_log_likelihood_blocked_reference(F5, Q5, X5),
         runs=3, launches=1)
-    k6_ms = cuda_ms(lambda: conditioned_log_likelihood_blocked_vjp(*k6_args),
-                    runs=5, launches=5)
     k6_plain = cuda_ms(
         lambda: conditioned_log_likelihood_blocked_vjp_reference(*k6_args),
         runs=3, launches=1)
@@ -983,6 +1054,47 @@ def main() -> int:
     k6_work = ll_blocked_bwd_work(P5, LL_TRIALS, J5, 2, T_FIT)
     k5_bound, k5_by = bound(k5_work)
     k6_bound, k6_by = bound(k6_work)
+    # K5 (store-free) and K6 at the gradient path's 24 sets and the forward
+    # path's one set: one block a set (C=1) against the wrapper's cluster
+    # size, in turns
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocked_ms, picked = {}, {}
+    for name, fn, counter, kernel_id, work_fn, args in (
+            ("K5 ll_blocked_fwd", ll_blocked_fwd,
+             conditioned_log_likelihood_blocked, 0, ll_blocked_work,
+             (F5, Q5, X5)),
+            ("K6 ll_blocked_bwd", conditioned_log_likelihood_blocked_vjp,
+             conditioned_log_likelihood_blocked_vjp, 2, ll_blocked_bwd_work,
+             k6_args)):
+        for P_ in (P5, 1):
+            a = tuple(x[:P_] for x in args)
+            fn(*a)
+            C = picked[(name, P_)] = counter.cluster
+            plan = kb.bwd_plan if kernel_id == 2 else kb.fwd_plan
+            active = kb.max_active_clusters(
+                kernel_id, 2, C, kb.MAX_THREADS,
+                plan(J5, 2, LL_TRIALS, C)[1] * 4)
+            t1, tc = paired_ms(lambda: fn(*a, cluster=1),
+                               lambda: fn(*a, cluster=C))
+            nbytes, ops = work_fn(P_, LL_TRIALS, J5, 2, T_FIT)
+            whole, by = bound((nbytes, ops))
+
+            def on(used):  # the bound on the SMs used
+                return max(nbytes / HBM_BYTES_PER_S,
+                           ops / (FP32_FLOPS_PER_S * used / sms)) * 1e3
+
+            blocked_ms[(name, P_, 1)], blocked_ms[(name, P_, C)] = t1, tc
+            log(f"[{card}] {name} P={P_} n={LL_TRIALS} T={T_FIT} j={J5}: "
+                f"C=1 {t1:.4f} ms on {P_} SMs ({ops / t1 / 1e9:.3f} TFLOP/s, "
+                f"bound on those SMs {on(P_):.4f} ms); C={C} {tc:.4f} ms on "
+                f"{P_ * C} SMs ({ops / tc / 1e9:.3f} TFLOP/s, bound on those "
+                f"SMs {on(P_ * C):.4f} ms); C=1 / C={C} {t1 / tc:.3f}; whole "
+                f"card bound {whole:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+                f"{ops / 1e9:.3f} GFLOP); {active} clusters of {C} at once")
+    k5_C = picked[("K5 ll_blocked_fwd", P5)]
+    k6_C = picked[("K6 ll_blocked_bwd", P5)]
+    k5_ms = blocked_ms[("K5 ll_blocked_fwd", P5, k5_C)]
+    k6_ms = blocked_ms[("K6 ll_blocked_bwd", P5, k6_C)]
     log(f"[{card}] K1 gains_fwd B={B} T={T}: {k1_ms:.4f} ms "
         f"({B / (k1_ms / 1e3):.1f} solves/s); through fused_gains "
         f"{k1_wrapper_ms:.4f} ms; plain {k1_plain:.2f} ms; bound "
@@ -1000,16 +1112,21 @@ def main() -> int:
         f"value+grad {grad_launches['ll_bwd']}")
 
     log(f"[{card}] K5 ll_blocked_fwd P={P5} n={LL_TRIALS} T={T_FIT} j={J5}: "
-        f"{k5_ms:.4f} ms ({k5_work[1] / k5_ms / 1e9:.3f} TFLOP/s); with the "
-        f"stores {k5_stores_ms:.4f} ms; plain "
+        f"{k5_ms:.4f} ms at C={k5_C} ({k5_work[1] / k5_ms / 1e9:.3f} TFLOP/s);"
+        f" with the stores {k5_stores_ms:.4f} ms; plain "
         f"{k5_plain:.2f} ms; bound {k5_bound:.4f} ms ({k5_by}; "
         f"{k5_work[0] / 1e6:.1f} MB, {k5_work[1] / 1e9:.2f} GFLOP); launches "
-        f"on the forward delay path {delay_launches['ll_blocked_fwd']}")
+        f"on the forward delay path {delay_launches['ll_blocked_fwd']} (C="
+        f"{delay_cluster})")
     log(f"[{card}] K6 ll_blocked_bwd P={P5} n={LL_TRIALS} T={T_FIT} j={J5}: "
-        f"{k6_ms:.4f} ms ({k6_work[1] / k6_ms / 1e9:.3f} TFLOP/s); plain "
-        f"{k6_plain:.2f} ms; bound {k6_bound:.4f} ms ({k6_by}; "
+        f"{k6_ms:.4f} ms at C={k6_C} ({k6_work[1] / k6_ms / 1e9:.3f} TFLOP/s);"
+        f" plain {k6_plain:.2f} ms; bound {k6_bound:.4f} ms ({k6_by}; "
         f"{k6_work[0] / 1e6:.1f} MB, {k6_work[1] / 1e9:.2f} GFLOP); launches "
-        f"per value+grad {dgrad_launches['ll_blocked_bwd']}")
+        f"per value+grad {dgrad_launches['ll_blocked_bwd']} (C="
+        f"{dgrad_cluster['ll_blocked_bwd']})")
+    by_shape = {k: {f"P={P_} C={C}": v for (n_, P_, C), v in
+                    blocked_ms.items() if n_ == k}
+                for k in ("K5 ll_blocked_fwd", "K6 ll_blocked_bwd")}
 
     kernels = [
         {"name": "gains_fwd", "route": "cuda",
@@ -1041,13 +1158,16 @@ def main() -> int:
          "replaces": "lqg_tpu/ops/pallas/likelihood_blocked.py:163",
          "launches": delay_launches["ll_blocked_fwd"], "max_abs_err": k5_err,
          "ms": k5_ms, "plain_ms": k5_plain, "bound_ms": k5_bound,
-         "bound_by": k5_by, "library_ms": None},
+         "bound_by": k5_by, "library_ms": None, "cluster": delay_cluster,
+         "ms_by_shape": by_shape["K5 ll_blocked_fwd"]},
         {"name": "ll_blocked_bwd", "route": "cuda",
          "source": "lqg_tpu_torch/csrc/likelihood_blocked.cu",
          "replaces": "lqg_tpu/ops/pallas/likelihood_blocked.py:245",
          "launches": dgrad_launches["ll_blocked_bwd"], "max_abs_err": k6_err,
          "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": k6_bound,
-         "bound_by": k6_by, "library_ms": None},
+         "bound_by": k6_by, "library_ms": None,
+         "cluster": dgrad_cluster["ll_blocked_bwd"],
+         "ms_by_shape": by_shape["K6 ll_blocked_bwd"]},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 
 from lqg_tpu_torch.config import resolve_device
+from lqg_tpu_torch.ops.linalg import cholesky
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _LOG_SQRT_2_OVER_PI = 0.5 * math.log(2.0 / math.pi)
@@ -167,7 +168,7 @@ class MultivariateNormal(Distribution):
 
     @property
     def scale_tril(self) -> torch.Tensor:
-        return torch.linalg.cholesky(self.covariance_matrix)
+        return cholesky(self.covariance_matrix)
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         chol = self.scale_tril

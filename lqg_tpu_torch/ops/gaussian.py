@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as nnf
 
 from lqg_tpu_torch.spec import LQGSpec
-from lqg_tpu_torch.ops.linalg import mT, cho_solve, symmetrize
+from lqg_tpu_torch.ops.linalg import mT, cho_solve, cholesky, symmetrize
 from lqg_tpu_torch.utils.numerics import kahan_sum
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -110,7 +110,7 @@ def _obs_chol(Sigma, d, jitter):
     S = Sigma[..., :d, :d]
     if jitter:
         S = S + jitter * torch.eye(d, dtype=S.dtype, device=S.device)
-    return torch.linalg.cholesky(symmetrize(S))
+    return cholesky(symmetrize(S))
 
 
 def _cov_step(Sigma, F, G, d, jitter):

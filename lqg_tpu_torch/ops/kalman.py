@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 
 from lqg_tpu_torch.spec import LQGSpec
-from lqg_tpu_torch.ops.linalg import mT, cho_solve, symmetrize
+from lqg_tpu_torch.ops.linalg import mT, cho_solve, cholesky, symmetrize
 
 
 def _step(P, A, F, V, W, jitter: float):
@@ -22,7 +22,7 @@ def _step(P, A, F, V, W, jitter: float):
     G = symmetrize(F @ PFt + W @ mT(W))
     if jitter:
         G = G + jitter * torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
-    chol = torch.linalg.cholesky(G)
+    chol = cholesky(G)
     # K = P F^T G^{-1} == (G^{-1} (P F^T)^T)^T since G is symmetric
     K = mT(cho_solve(chol, mT(PFt)))
     P = symmetrize(P - K @ mT(PFt))

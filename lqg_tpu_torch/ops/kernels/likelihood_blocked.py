@@ -30,18 +30,24 @@ factorized.
 
 What bounds it on an H100: operations, nominally (three ``j^3``-sized
 products a step: at 24 sets, T = 1008, j = 65 about 31 GFLOP against 0.8 GB
-moved), but one thread block walks each set's T-step chain, so 24 of the
-card's 132 SMs work and each step's products wait on the one before.  The
-design keeps both carries in shared memory for the whole loop, does the
-conditioning as a rank-d update, and runs the products as register-tiled
-float32 FMA loops at the true ``j`` (no padding to a tile, no TF32).
+moved), but each set's T steps form one chain, so one thread block per set
+put 24 of the card's 132 SMs to work.  A set runs on a cluster of ``C``
+blocks (:func:`cluster_size`): each rank holds the full carries in its
+shared memory, repeats the O(j^2) conditioning, computes its rows of the
+``j^3`` products and writes them into every rank's next carry through
+distributed shared memory, one cluster barrier a step.  Each output is one
+thread's sum in a fixed order, so the result is the same bits at every
+``C``.  The products are register-tiled float32 FMA loops at the true ``j``
+(no padding to a tile, no TF32).
 
 K6 (:func:`conditioned_log_likelihood_blocked_vjp`) runs the reverse
 recursion of ``likelihood_blocked.py:250-273`` from the carries K5 stores
 on the gradient path (``Sig_t``, ``MU_t`` for ``t = 0..T``).  The sums over
-trials are contractions inside the block, so ``Fbar`` and ``Qbar`` are
+trials are contractions inside the cluster, so ``Fbar`` and ``Qbar`` are
 written once per set and step: no per-trial copies, no atomics, a fixed
-order.  The ``t = 0`` boundary (``Sig_0 = Q_0``, ``MU_0 = [X_0; 0]``) is
+order.  Its contractions over all rows are partials over each rank's rows,
+added in rank order after a cluster barrier; a second barrier ends the
+step.  The ``t = 0`` boundary (``Sig_0 = Q_0``, ``MU_0 = [X_0; 0]``) is
 folded inside the kernel.  ``Qbar`` comes back in the symmetric gauge.
 
 The plain PyTorch versions
@@ -70,10 +76,22 @@ _LOG_2PI = math.log(2.0 * math.pi)
 
 # the kernels' scope (likelihood_blocked.py:350-351)
 MIN_J, MAX_J, MAX_D, MAX_N = 13, 128, 4, 128
+# threads a block, the kernels' most (__launch_bounds__): at 128 registers
+# a thread one block fills an SM's register file, so the card runs one block
+# an SM whatever the count, and more warps hide more of the latency of a
+# step's dependent phases (PERF.md, section 6); every count gives the same
+# bits
+MAX_THREADS = 512
 # shared memory a block may use on Hopper, and what the kernels keep for
 # their static buffers
 SMEM_LIMIT = 232448
 SMEM_RESERVE = 1024
+# cluster sizes a parameter set may run on, and the fewest rows a rank owns
+# under the wrapper's rule
+CLUSTERS = (1, 2, 4, 8)
+MIN_PANEL = 8
+# floats of the kernels' table of the ranks' carry addresses (kTable)
+_TABLE = 64
 
 
 def _score(Sig, MU, Xt, d):
@@ -159,12 +177,13 @@ def conditioned_log_likelihood_blocked_vjp_reference(F, X, w, Sig_st, MU_st):
         _, _, Sinv, E, SE = _score(Sig, MU, Xt[:, t], d)
         Kc, KcT, Sc = _condition(Sig, Sinv, d)
         MUc = MU + Kc @ E
-        FSc = F_t @ Sc
         mask = 1.0 if t >= 1 else 0.0
 
         Bs = _sym(B)
-        Fbar = 2.0 * (Bs @ FSc) + m @ mT(MUc)
-        Scrb = mT(F_t) @ (Bs @ F_t)
+        # grouped as K6 groups them: (Bs F) Sc, and (Bs F)^T F for F^T Bs F
+        BsF = Bs @ F_t
+        Fbar = 2.0 * (BsF @ Sc) + m @ mT(MUc)
+        Scrb = mT(BsF) @ F_t
         MUc_bar = mT(F_t) @ m
         Kcbar = -(Scrb @ Sig[..., :, :d]) + MUc_bar @ mT(E)
         Ebar = KcT @ MUc_bar - mask * (SE * wr)
@@ -191,34 +210,53 @@ def blocked_ll_available(j: int, d: int, n: int, dtype) -> bool:
             and 1 <= n <= MAX_N and dtype == torch.float32)
 
 
+def cluster_size(P: int, j: int, sms: int) -> int:
+    """Blocks of the cluster that runs one parameter set: the largest ``C``
+    of :data:`CLUSTERS` with ``P C <= sms`` (one SM a block) and at least
+    :data:`MIN_PANEL` rows a rank.  At the fit's 24 sets (j = 65) on 132
+    SMs that is 4; for the one set of the forward delay path, 8."""
+    fits = [C for C in CLUSTERS
+            if P * C <= sms and -(-j // C) >= MIN_PANEL]
+    return max(fits, default=1)
+
+
+def row_panels(j: int, C: int) -> list:
+    """``(start, rows)`` of each rank: a near-even split of ``[0, j)``,
+    the larger panels first (the kernels' ``row_panel``)."""
+    base, extra = divmod(j, C)
+    return [(r * base + min(r, extra), base + (r < extra)) for r in range(C)]
+
+
 def _round4(k: int) -> int:
     return (k + 3) // 4 * 4
 
 
-def _small_floats(j: int, d: int, n: int) -> int:
-    """Floats of the kernels' small per-step buffers (K6's set, which
-    contains K5's): Kc, KcT, the first d rows and columns of Sig, Kcbar,
-    the row correction, E, SE, Ebar, and the d x d scalars."""
-    return _round4(6 * j * d) + _round4(3 * d * n) + 64
+def _small_floats(j: int, d: int, n: int, C: int = 0) -> int:
+    """Floats of the kernels' small buffers: the table of the ranks' carry
+    addresses, Kc, KcT, the first d rows and columns of Sig, Kcbar, the
+    row correction, E, SE, Ebar, two d x d scalars and, for K6 (``C`` > 0),
+    the C ranks' partials of the three contractions over rows."""
+    partials = C * (d * j + d * n + d * d)
+    return (_TABLE + _round4(6 * j * d) + _round4(3 * d * n) + 32
+            + _round4(partials))
 
 
-def plan_buffers(j: int, d: int, n: int, sizes) -> tuple:
-    """Place the kernels' large buffers: ``sizes`` lists their floats in
-    order of priority; each goes to shared memory while the block's budget
-    lasts and to a per-set scratch in device memory after that.  The last
-    is the staged ``F_t``: without room it gets no scratch, the kernel then
-    reads ``F_t`` where it lies.
+def plan_buffers(small: int, sizes) -> tuple:
+    """Place the kernels' large buffers after ``small`` floats of small
+    ones: ``sizes`` lists their floats in order of priority; each goes to
+    shared memory while the block's budget lasts and to a per-rank scratch
+    in device memory after that.  The last is the staged ``F_t``: without
+    room it gets no scratch, the kernel then reads ``F_t`` where it lies.
 
     Returns ``(place, smem_floats, scratch_floats)``: ``place[i] >= 0`` is
     buffer ``i``'s offset in shared memory, ``place[i] < 0`` means offset
-    ``-place[i] - 1`` in the set's scratch.
+    ``-place[i] - 1`` in the rank's scratch.
     """
-    used = _small_floats(j, d, n)
+    used = small
     budget = (SMEM_LIMIT - SMEM_RESERVE) // 4
     if used > budget:
         raise ValueError(f"blocked likelihood: the per-step buffers alone "
-                         f"({used * 4} B at j={j}, d={d}, n={n}) exceed the "
-                         f"block's shared memory")
+                         f"({used * 4} B) exceed the block's shared memory")
     place, scratch = [], 0
     for i, size in enumerate(sizes):
         size = _round4(size)
@@ -233,36 +271,47 @@ def plan_buffers(j: int, d: int, n: int, sizes) -> tuple:
     return tuple(place), used, scratch
 
 
-def fwd_plan(j: int, d: int, n: int) -> tuple:
-    """K5's buffers: Sig, MU, the product buffer (``F Sc``, then ``F
-    MUc``), and the staged ``F_t``."""
-    return plan_buffers(j, d, n, (j * j, j * n, max(j * j, j * n), j * j))
+def fwd_sizes(j: int, n: int, C: int = 1) -> tuple:
+    """K5's large buffers for one rank of a cluster of ``C``: two Sig and
+    two MU (the carries, double-buffered: the ranks write the next while
+    they read the current), the rank's rows of ``F Sc``, and the staged
+    ``F_t``."""
+    rows = row_panels(j, C)[0][1]
+    return (j * j, j * j, j * n, j * n, rows * j, j * j)
 
 
-def bwd_plan(j: int, d: int, n: int) -> tuple:
-    """K6's buffers: the carry ``B``, Sig (then Sc, Scrb and the new
-    ``B``), the carry ``m``, MU (then MUc, MUc_bar and the new ``m``), the
-    product buffer (``F Sc``, then ``Bs F``), and the staged ``F_t``."""
-    return plan_buffers(j, d, n, (j * j, j * j, j * n, j * n, j * j, j * j))
+def bwd_sizes(j: int, n: int, C: int = 1) -> tuple:
+    """K6's large buffers for one rank: the carry ``B``, Sig (then Sc), the
+    carry ``m``, MU (then MUc), the rank's rows and columns of ``Bs F``, its
+    rows of ``Scrb`` and of ``MUc_bar``, and the staged ``F_t``."""
+    rows = row_panels(j, C)[0][1]
+    return (j * j, j * j, j * n, j * n, rows * j, j * rows, rows * j,
+            rows * n, j * j)
 
 
-def _threads(j: int, n: int) -> int:
-    """Threads of a block: one per 4 x 4 tile of a j x j product, at least
-    one per trial, a multiple of 32 between 128 and 512."""
-    tiles = ((j + 3) // 4) ** 2
-    return min(512, max(128, (max(tiles, n) + 31) // 32 * 32))
+def fwd_plan(j: int, d: int, n: int, C: int = 1) -> tuple:
+    """K5's buffer plan for one rank of a cluster of ``C``."""
+    return plan_buffers(_small_floats(j, d, n), fwd_sizes(j, n, C))
+
+
+def bwd_plan(j: int, d: int, n: int, C: int = 1) -> tuple:
+    """K6's buffer plan for one rank of a cluster of ``C``."""
+    return plan_buffers(_small_floats(j, d, n, C), bwd_sizes(j, n, C))
 
 
 def _lib():
     lib = nvcc.load("likelihood_blocked")
     lib.lqg_ll_blocked_fwd.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15
         + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     lib.lqg_ll_blocked_fwd.restype = ctypes.c_int
     lib.lqg_ll_blocked_bwd.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 18
         + [ctypes.c_float, ctypes.c_void_p])
     lib.lqg_ll_blocked_bwd.restype = ctypes.c_int
+    lib.lqg_ll_blocked_max_clusters.argtypes = (
+        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])
+    lib.lqg_ll_blocked_max_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -273,35 +322,78 @@ def _check_scope(j, d, n):
             f"{MIN_J} <= j <= {MAX_J}, d <= {MAX_D}, n <= {MAX_N}")
 
 
-def ll_blocked_fwd(F, Q, X, stores: bool = False):
+_active_clusters = {}
+
+
+def max_active_clusters(kernel: int, d: int, C: int, threads: int,
+                        smem_bytes: int) -> int:
+    """Clusters of ``C`` blocks the card runs at once
+    (``cudaOccupancyMaxActiveClusters``) for K5 (``kernel`` 0 store-free,
+    1 with stores) or K6 (2); cached."""
+    key = (torch.cuda.current_device(), kernel, d, C, threads, smem_bytes)
+    if key not in _active_clusters:
+        count = ctypes.c_int(0)
+        nvcc.check(_lib().lqg_ll_blocked_max_clusters(
+            kernel, d, C, threads, smem_bytes, ctypes.byref(count)),
+            "cudaOccupancyMaxActiveClusters")
+        _active_clusters[key] = count.value
+    return _active_clusters[key]
+
+
+def _launch_plan(kernel, P, j, d, n, device, cluster):
+    """``(C, place, smem_floats, scratch_floats)`` of a launch: ``cluster``
+    where the caller gives it, else :func:`cluster_size`, lowered while
+    the card runs fewer than ``P`` clusters of that shape at once."""
+    plan = bwd_plan if kernel == 2 else fwd_plan
+    if cluster is not None:
+        if cluster not in CLUSTERS:
+            raise ValueError(f"cluster={cluster}: expected one of {CLUSTERS}")
+        return (cluster,) + plan(j, d, n, cluster)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    C = cluster_size(P, j, sms)
+    while True:
+        place, smem, scratch = plan(j, d, n, C)
+        if C == 1 or max_active_clusters(kernel, d, C, MAX_THREADS,
+                                         smem * 4) >= P:
+            return C, place, smem, scratch
+        C //= 2
+
+
+def ll_blocked_fwd(F, Q, X, stores: bool = False, cluster=None):
     """K5 on checked inputs: ``ll (P, n)`` and, with ``stores``, the
     carries ``(Sig_t, MU_t)`` K6 reads, ``(P, T+1, j, j)`` and ``(P, T+1,
     j, n)``.  A CUDA tensor launches the kernel (float32) or raises; a CPU
-    tensor takes the plain version."""
+    tensor takes the plain version.  ``cluster`` fixes the blocks a
+    parameter set runs on (tests and timing); by default the wrapper picks
+    them (:func:`cluster_size`).  The result is the same bits at every
+    cluster size."""
     if not _on_card((F, Q, X), "blocked likelihood"):
         return conditioned_log_likelihood_blocked_reference(F, Q, X, stores)
     P_, T, j, _ = F.shape
     n, d = X.shape[1], X.shape[-1]
     _check_scope(j, d, n)
-    place, smem, scratch = fwd_plan(j, d, n)
+    C, place, smem, scratch = _launch_plan(int(stores), P_, j, d, n,
+                                           F.device, cluster)
     F, Q, X = F.contiguous(), Q.contiguous(), X.contiguous()
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=F.device)
     ll = new(P_, n)
     st = (new(P_, T + 1, j, j), new(P_, T + 1, j, n)) if stores else ()
-    work = new(P_, max(scratch, 1))
+    work = new(P_ * C, max(scratch, 1))
     status = _lib().lqg_ll_blocked_fwd(
         F.data_ptr(), Q.data_ptr(), X.data_ptr(), ll.data_ptr(),
         *([x.data_ptr() for x in st] if stores else [None, None]),
-        work.data_ptr(), j, d, P_, n, T, _threads(j, n), smem * 4, scratch,
+        work.data_ptr(), j, d, P_, C, n, T, MAX_THREADS, smem * 4, scratch,
         *place, EPS, T * d * _LOG_2PI,
         torch.cuda.current_stream(F.device).cuda_stream)
     nvcc.check(status, "ll_blocked_fwd")
     conditioned_log_likelihood_blocked.launches += 1
+    conditioned_log_likelihood_blocked.cluster = C
     return (ll,) + st if stores else ll
 
 
-def conditioned_log_likelihood_blocked_vjp(F, X, w, Sig_st, MU_st):
+def conditioned_log_likelihood_blocked_vjp(F, X, w, Sig_st, MU_st,
+                                           cluster=None):
     """K6: the cotangents of K5's inputs from ``w``, that of its output.
 
     Args:
@@ -309,6 +401,8 @@ def conditioned_log_likelihood_blocked_vjp(F, X, w, Sig_st, MU_st):
         w: ``(P, n)`` cotangent of the per-trial log likelihoods.
         Sig_st, MU_st: K5's stores, ``(P, T+1, j, j)`` and ``(P, T+1, j,
             n)``.
+        cluster: blocks a parameter set runs on, as for
+            :func:`ll_blocked_fwd`.
 
     Returns ``(Fbar, Qbar)``, each ``(P, T, j, j)`` with ``Qbar``
     symmetric, and ``Xbar (P, n, T+1, d)``.  A CUDA tensor launches the
@@ -320,19 +414,20 @@ def conditioned_log_likelihood_blocked_vjp(F, X, w, Sig_st, MU_st):
     P_, T, j, _ = F.shape
     n, d = X.shape[1], X.shape[-1]
     _check_scope(j, d, n)
-    place, smem, scratch = bwd_plan(j, d, n)
+    C, place, smem, scratch = _launch_plan(2, P_, j, d, n, F.device, cluster)
     ins = [x.contiguous() for x in ins]
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=F.device)
     Fbar, Qbar, Xbar = new(P_, T, j, j), new(P_, T, j, j), new(P_, n, T + 1, d)
-    work = new(P_, max(scratch, 1))
+    work = new(P_ * C, max(scratch, 1))
     status = _lib().lqg_ll_blocked_bwd(
         *(x.data_ptr() for x in ins), Fbar.data_ptr(), Qbar.data_ptr(),
-        Xbar.data_ptr(), work.data_ptr(), j, d, P_, n, T, _threads(j, n),
+        Xbar.data_ptr(), work.data_ptr(), j, d, P_, C, n, T, MAX_THREADS,
         smem * 4, scratch, *place, EPS,
         torch.cuda.current_stream(F.device).cuda_stream)
     nvcc.check(status, "ll_blocked_bwd")
     conditioned_log_likelihood_blocked_vjp.launches += 1
+    conditioned_log_likelihood_blocked_vjp.cluster = C
     return Fbar, Qbar, Xbar
 
 
@@ -377,5 +472,8 @@ def conditioned_log_likelihood_blocked(F: torch.Tensor, Q: torch.Tensor,
     return _BlockedLikelihood.apply(F, Q, X)
 
 
+# launches, and the cluster size of the last launch
 conditioned_log_likelihood_blocked.launches = 0
 conditioned_log_likelihood_blocked_vjp.launches = 0
+conditioned_log_likelihood_blocked.cluster = None
+conditioned_log_likelihood_blocked_vjp.cluster = None

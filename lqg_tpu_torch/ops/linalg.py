@@ -18,6 +18,14 @@ def symmetrize(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (x + mT(x))
 
 
+def cholesky(x: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor, NaN for a matrix that is not positive-definite,
+    as ``jnp.linalg.cholesky`` returns.  ``torch.linalg.cholesky_ex`` skips
+    the error check, so the host does not wait for the card."""
+    chol, info = torch.linalg.cholesky_ex(x)
+    return torch.where((info != 0)[..., None, None], torch.nan, chol)
+
+
 def cho_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve ``L L^T x = b`` given lower-triangular ``L`` (batched)."""
     vec = b.dim() == chol.dim() - 1
@@ -51,6 +59,7 @@ def regularize_spd(H: torch.Tensor, eps: float, mode: str) -> torch.Tensor:
         lift = eps * (scale + 1e-30)
         return H + lift[..., None, None] * _eye_like(H)
     if mode == "eigh":
+        # eigvalsh checks convergence on the host: a sync on the card
         evals = torch.linalg.eigvalsh(H)
         lift = torch.clamp(eps - evals[..., 0], min=0.0)
         return H + lift[..., None, None] * _eye_like(H)

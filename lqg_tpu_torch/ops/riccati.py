@@ -16,7 +16,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from lqg_tpu_torch.spec import LQGSpec
-from lqg_tpu_torch.ops.linalg import mT, cho_solve, regularize_spd, symmetrize
+from lqg_tpu_torch.ops.linalg import (mT, cho_solve, cholesky, regularize_spd,
+                                     symmetrize)
 
 
 class Gains(NamedTuple):
@@ -39,7 +40,7 @@ def _step(S, s, Q, q, P, R, r, A, B, *, eps: float, regularize: str):
     g = r + _mv(B, s)
 
     Ht = regularize_spd(H, eps, regularize)
-    chol = torch.linalg.cholesky(Ht)
+    chol = cholesky(Ht)
     L = -cho_solve(chol, G)
     l = -cho_solve(chol, g)
 

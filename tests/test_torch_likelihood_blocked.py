@@ -173,6 +173,30 @@ def test_plain_adjoint_matches_jax_scan_twin(case):
                                    err_msg=f"cotangent of {name}")
 
 
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_plain_adjoint_matches_jax_scan_twin_float64(case, x64):
+    """float64: the plain K6, which groups ``Fbar = 2 (Bs F) Sc + m MUc^T``
+    and ``Scrb = (Bs F)^T F`` as the clustered kernel does, against
+    ``jax.grad`` of the JAX scan twin."""
+    import jax
+    import jax.numpy as jnp
+    from lqg_tpu.ops.pallas.likelihood_blocked import _scan_twin
+
+    F, Q, X, _ = _jax_case(*case)
+    want = jax.jit(jax.grad(lambda FQX: jnp.sum(_scan_twin(*FQX))))(
+        tuple(map(jnp.asarray, (F, Q, X))))
+    leaves = [torch.tensor(a, requires_grad=True) for a in (F, Q, X)]
+    got = torch.autograd.grad(
+        kb.conditioned_log_likelihood_blocked(*leaves).sum(), leaves)
+    for name, a, b in zip("FQX", got, want):
+        a, b = a.numpy(), np.asarray(b)
+        if name == "Q":
+            a, b = _sym(a), _sym(b)
+        scale = max(np.abs(b).max(), 1e-6)
+        np.testing.assert_allclose(a / scale, b / scale, rtol=1e-9,
+                                   atol=1e-10, err_msg=f"cotangent of {name}")
+
+
 def test_function_on_cpu_launches_nothing():
     F, Q, X = _torch_case(4, 9, 3, 1, P=2)
     leaves = [a.requires_grad_() for a in (F, Q, X)]
@@ -203,29 +227,72 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("j,d,n", [(13, 1, 1), (65, 2, 20), (120, 4, 20),
                                    (128, 4, 128), (128, 2, 64), (25, 2, 128)])
 def test_buffer_plan_fits_the_block(j, d, n):
-    """Every buffer gets its room, in shared memory or in the scratch,
-    without overlap; the model family's shapes fit shared memory whole."""
-    for plan, sizes in ((kb.fwd_plan, (j * j, j * n, max(j * j, j * n),
-                                       j * j)),
-                        (kb.bwd_plan, (j * j, j * j, j * n, j * n, j * j,
-                                       j * j))):
-        place, smem, scratch = plan(j, d, n)
-        assert smem * 4 <= kb.SMEM_LIMIT - kb.SMEM_RESERVE
-        in_smem = sorted((p, s) for p, s in zip(place, sizes) if p >= 0)
-        in_scratch = sorted((-p - 1, s) for p, s in zip(place[:-1],
-                                                        sizes[:-1]) if p < 0)
-        assert in_smem[0][0] >= kb._small_floats(j, d, n)
-        for spans, end in ((in_smem, smem), (in_scratch, scratch)):
-            for (a, size), (b, _) in zip(spans, spans[1:] + [(end, 0)]):
-                assert a + size <= b
-        if j <= 65:
-            assert scratch == 0 and all(p >= 0 for p in place)
-    assert 32 <= kb._threads(j, n) <= 512 and kb._threads(j, n) >= n
+    """Every buffer of a rank gets its room, in shared memory or in the
+    scratch, without overlap, at every cluster size; the model family's
+    shapes fit shared memory whole."""
+    for C in kb.CLUSTERS:
+        for plan, sizes, small in (
+                (kb.fwd_plan, kb.fwd_sizes(j, n, C), kb._small_floats(j, d, n)),
+                (kb.bwd_plan, kb.bwd_sizes(j, n, C),
+                 kb._small_floats(j, d, n, C))):
+            place, smem, scratch = plan(j, d, n, C)
+            assert smem * 4 <= kb.SMEM_LIMIT - kb.SMEM_RESERVE
+            in_smem = sorted((p, s) for p, s in zip(place, sizes) if p >= 0)
+            in_scratch = sorted((-p - 1, s) for p, s in zip(place[:-1],
+                                                            sizes[:-1])
+                                if p < 0)
+            assert in_smem[0][0] >= small
+            for spans, end in ((in_smem, smem), (in_scratch, scratch)):
+                for (a, size), (b, _) in zip(spans, spans[1:] + [(end, 0)]):
+                    assert a + size <= b
+            if j <= 65:
+                assert scratch == 0 and all(p >= 0 for p in place)
+    assert kb.MAX_THREADS % 32 == 0 and kb.MAX_THREADS >= n
 
 
 def test_top_of_scope_needs_the_scratch():
     place, smem, scratch = kb.bwd_plan(128, 4, 128)
     assert scratch > 0 and place[-1] == -1  # F_t read where it lies
+    for C in kb.CLUSTERS:  # a rank holds the full carries at every C
+        assert kb.fwd_plan(128, 4, 128, C)[2] > 0
+        assert kb.bwd_plan(128, 4, 128, C)[2] > 0
+
+
+@pytest.mark.parametrize("P,j,sms,want", [
+    (24, 65, 132, 4),  # the fit's 24 sets: 96 SMs
+    (1, 65, 132, 8),  # the forward delay path's one set
+    (33, 65, 132, 4), (34, 65, 132, 2), (66, 65, 132, 2), (67, 65, 132, 1),
+    (24, 65, 114, 4), (24, 65, 78, 2),  # smaller cards
+    (1, 13, 132, 1), (1, 16, 132, 2), (1, 28, 132, 2), (1, 29, 132, 4),
+    (1, 57, 132, 8), (2, 120, 132, 8), (200, 128, 132, 1),
+])
+def test_cluster_size_rule(P, j, sms, want):
+    assert kb.cluster_size(P, j, sms) == want
+
+
+def test_cluster_size_is_the_largest_that_fits():
+    for sms in (78, 114, 132):
+        for P in range(1, 140):
+            for j in range(kb.MIN_J, kb.MAX_J + 1):
+                C = kb.cluster_size(P, j, sms)
+                fits = lambda c: P * c <= sms and -(-j // c) >= kb.MIN_PANEL
+                assert C in kb.CLUSTERS and (C == 1 or fits(C))
+                assert not any(fits(c) for c in kb.CLUSTERS if c > C)
+
+
+def test_row_panels_cover_the_rows_once():
+    for j in range(kb.MIN_J, kb.MAX_J + 1):
+        for C in kb.CLUSTERS:
+            panels = kb.row_panels(j, C)
+            assert len(panels) == C
+            assert [s for s, _ in panels] == list(
+                np.cumsum([0] + [r for _, r in panels[:-1]]))
+            assert sum(r for _, r in panels) == j
+            rows = [r for _, r in panels]
+            assert rows == sorted(rows, reverse=True)
+            assert max(rows) - min(rows) <= 1 and min(rows) >= 1
+            assert max(rows) == -(-j // C)
+    assert kb.row_panels(65, 4) == [(0, 17), (17, 16), (33, 16), (49, 16)]
 
 
 # --- on the card ---
@@ -269,6 +336,64 @@ def test_kernels_match_reference_on_card(cuda, j_delay, T, n, dim, P):
     for name, a, b in zip(("Fbar", "Qbar", "Xbar"), got, want):
         assert torch.isfinite(a).all()
         _scaled_close(a, b, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("j_delay,T,n,dim,P", [
+    (None, 1008, 20, 1, 3),  # the data fit's shape, j = 65, d = 2
+    (11, 40, 20, 2, 2),  # j = 120, d = 4
+])
+def test_every_cluster_size_matches_reference_on_card(cuda, j_delay, T, n,
+                                                      dim, P):
+    """K5 (both variants) and K6 at every cluster size against their plain
+    versions; K5 the same bits at every size, K6 the same bits twice."""
+    F, Q, X = _torch_case(j_delay, T, n, dim, P=P, device=cuda)
+    ref = kb.conditioned_log_likelihood_blocked_reference(F, Q, X,
+                                                          stores=True)
+    w = torch.randn(X.shape[:2], generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    first = None
+    for C in kb.CLUSTERS:
+        out = kb.ll_blocked_fwd(F, Q, X, stores=True, cluster=C)
+        free = kb.ll_blocked_fwd(F, Q, X, cluster=C)
+        torch.cuda.synchronize()
+        assert kb.conditioned_log_likelihood_blocked.cluster == C
+        torch.testing.assert_close(out[0], ref[0], **LL_TOL)
+        assert torch.equal(free, out[0]), f"C={C}: store-free variant"
+        _scaled_close(out[1], ref[1], f"C={C}: Sig stores")
+        _scaled_close(out[2], ref[2], f"C={C}: MU stores")
+        first = first or out
+        assert all(torch.equal(a, b) for a, b in zip(out, first)), \
+            f"K5 at C={C} differs from C=1"
+        got = kb.conditioned_log_likelihood_blocked_vjp(F, X, w, *out[1:],
+                                                        cluster=C)
+        again = kb.conditioned_log_likelihood_blocked_vjp(F, X, w, *out[1:],
+                                                          cluster=C)
+        want = kb.conditioned_log_likelihood_blocked_vjp_reference(
+            F, X, w, *out[1:])
+        torch.cuda.synchronize()
+        assert kb.conditioned_log_likelihood_blocked_vjp.cluster == C
+        for name, a, b, c in zip(("Fbar", "Qbar", "Xbar"), got, again, want):
+            assert torch.isfinite(a).all() and torch.equal(a, b), name
+            _scaled_close(a, c, f"C={C}: {name}")
+
+
+@pytest.mark.cuda
+def test_wrapper_runs_a_set_on_a_cluster_on_card(cuda):
+    """At the fit's 24 sets the wrapper picks a cluster of more than one
+    block, and for one set no fewer."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    F, Q, X = _torch_case(None, 12, 20, 1, P=2, device=cuda)
+    F24, Q24, X24 = (a.repeat(12, 1, 1, 1) for a in (F, Q, X))
+    leaves = [a.requires_grad_() for a in (F24, Q24, X24)]
+    kb.conditioned_log_likelihood_blocked(*leaves).sum().backward()
+    torch.cuda.synchronize()
+    picked = (kb.conditioned_log_likelihood_blocked.cluster,
+              kb.conditioned_log_likelihood_blocked_vjp.cluster)
+    assert all(1 < C <= kb.cluster_size(24, 65, sms) for C in picked), picked
+    kb.ll_blocked_fwd(F[:1], Q[:1], X[:1])
+    assert (kb.conditioned_log_likelihood_blocked.cluster
+            >= picked[0]), kb.conditioned_log_likelihood_blocked.cluster
 
 
 @pytest.mark.cuda

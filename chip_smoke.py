@@ -20,14 +20,17 @@ beside it.  Phases, each fatal on failure:
    of one call under ``torch.profiler``;
 6. K1's stores and K2 (gains adjoint) against their plain versions at the
    potential's 24 specs at T=1008 and at 2,048 specs at T=719 (prime), on
-   random cotangents; K3's stores (per set) and K4 (likelihood adjoint) at
-   24 sets x 20 trials at T=1008, and two K4 launches bit for bit;
+   random cotangents, and two K2 launches bit for bit; K3's stores (per
+   set) and K4 (likelihood adjoint) at 24 sets x 20 trials at T=1008, and
+   two K4 launches bit for bit;
 7. the gradient path: the hierarchical potential
    ``shared_params_lqg_model(x, BoundedActor, ...)`` of 6 conditions x 20
    simulated trials at T=1008 (the data.mat shape), value and gradient for
    4 chains at once, with the counters zeroed just before and read just
    after (K1-K4 once each); against the float64 model on the card (the
-   scans); its warm host-clock time and the device's busy share;
+   scans); its warm host-clock time and the device's busy share, the
+   kernels' device time in the path (``torch.profiler``), and the SM clock
+   and power draw (``nvidia-smi``) sampled while it repeats;
 8. K5 (blocked large-j likelihood) and its stores, and K6 (its adjoint) on
    a random cotangent, against their plain versions at every cluster size
    (1, 2, 4, 8 blocks a parameter set), K5 the same bits at every size and
@@ -53,9 +56,12 @@ beside it.  Phases, each fatal on failure:
     variants) and K4 timed at (5, 2);
 12. times from CUDA events (warmed, median of 7 runs of 20 launches; fewer
     for K5, K6 and the plain versions, which take ~0.5-3 s a call) beside
-    each kernel's bound; K5 and K6 at P=24 and at P=1, at one block a set
-    (C=1) and at the wrapper's cluster size, timed in turns, with the SMs
-    they use, TFLOP/s, the whole card's bound and the bound on those SMs.
+    each kernel's bound; K2 at 24 specs, T=1008 and at 2,048 specs, T=719,
+    also its device time a launch from ``torch.profiler``, with the SM
+    clock and power draw sampled while it repeats; K5 and K6 at P=24 and
+    at P=1, at one block a set (C=1) and at the wrapper's cluster size,
+    timed in turns, with the SMs they use, TFLOP/s, the whole card's bound
+    and the bound on those SMs.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -124,6 +130,51 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def smi_during(fn, seconds=1.5):
+    """Calls ``fn`` and synchronizes, again and again for ``seconds``, while
+    ``nvidia-smi`` samples the SM clock (MHz) and the power draw (W) every
+    20 ms; returns the calls made and each quantity's (min, median, max)
+    over the samples, or None where no sample came."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        calls, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+            calls += 1
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = []
+    for line in out.splitlines():
+        try:
+            rows.append([float(v) for v in line.split(",")])
+        except ValueError:
+            continue
+    if not rows:
+        return calls, None
+
+    def spread(values):
+        return (min(values), statistics.median(values), max(values))
+
+    return calls, {"samples": len(rows), "sm_mhz": spread([r[0] for r in rows]),
+                   "power_w": spread([r[1] for r in rows])}
+
+
+def smi_text(sampled):
+    calls, stats = sampled
+    if stats is None:
+        return f"{calls} calls; SM clock and power not measured (no sample)"
+    return (f"{calls} calls; {stats['samples']} nvidia-smi samples: SM clock "
+            f"min/median/max {stats['sm_mhz'][0]:.0f}/{stats['sm_mhz'][1]:.0f}"
+            f"/{stats['sm_mhz'][2]:.0f} MHz, power draw "
+            f"{stats['power_w'][0]:.2f}/{stats['power_w'][1]:.2f}/"
+            f"{stats['power_w'][2]:.2f} W")
+
+
 def ptxas_summary(report: str):
     """One line per kernel of an ``-Xptxas -v`` report: its name and
     template arguments, registers, stack frame and spills."""
@@ -185,10 +236,9 @@ def paired_ms(fn_a, fn_b, rounds=6, launches=5):
     return statistics.median(times[0]), statistics.median(times[1])
 
 
-def profile_ms(fn, names):
-    """One call of ``fn`` under ``torch.profiler``: its host-clock time, the
-    union of the device's busy intervals, the number of device events and
-    the device time of the kernels named in ``names`` (all in ms)."""
+def device_spans(fn):
+    """One call of ``fn`` under ``torch.profiler``: its host-clock time (ms)
+    and the device's events as sorted (start ns, end ns, name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -198,9 +248,24 @@ def profile_ms(fn, names):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.start_ns(), e.end_ns(), e.name())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
+    return wall, sorted((e.start_ns(), e.end_ns(), e.name())
+                        for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA)
+
+
+def kernel_device_ms(fn, name):
+    """The device time of each kernel named ``name`` that one call of ``fn``
+    launches, under ``torch.profiler``: (their mean in ms, their count), or
+    (None, 0) where none was recorded."""
+    times = [(e - s) / 1e6 for s, e, n in device_spans(fn)[1] if name in n]
+    return (statistics.mean(times) if times else None), len(times)
+
+
+def profile_ms(fn, names):
+    """One call of ``fn`` under ``torch.profiler``: its host-clock time, the
+    union of the device's busy intervals, the number of device events and
+    the device time of the kernels named in ``names`` (all in ms)."""
+    wall, spans = device_spans(fn)
     busy, reach = 0, 0
     for start, end, _ in spans:
         busy += max(0, end - max(start, reach))
@@ -524,7 +589,7 @@ def main() -> int:
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
     g2 = torch.Generator(device=dev).manual_seed(2)
-    k2_err, k2_inputs = 0.0, None
+    k2_err, k2_inputs, k2_large = 0.0, None, None
     for B2, T2 in ((CHAINS * CONDITIONS, T_FIT), (2048, 719)):
         sp, ins = sweep_spec(B2)
         out = gains_fwd(*ins, T2, stores=True)
@@ -540,12 +605,16 @@ def main() -> int:
         A2, Bm2, _, R2, _, F2, VV2, WW2, _ = ins
         args = (A2, Bm2, R2, F2, VV2, WW2, *out[3:], *cots)
         got = fused_gains_vjp(*args)
+        again = fused_gains_vjp(*args)
         want = fused_gains_vjp_reference(*args)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"K2: two launches differ at B={B2}")
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         rel = max(rel_err(a, b) for a, b in zip(got, want))
         log(f"K1 stores vs plain at B={B2}, T={T2}: max abs err {st_err:.3e};"
-            f" K2 vs plain: max abs err {err:.3e}, max err / max|plain| "
+            f" K2 two launches the same bits; vs plain: max abs err "
+            f"{err:.3e}, max err / max|plain| "
             f"{rel:.3e} (rtol {K2_RTOL}, atol {K2_ATOL} + {K2_SCALE} max|plain|);"
             f" max|plain| "
             f"{max(float(b.abs().max()) for b in want):.4g}")
@@ -554,8 +623,10 @@ def main() -> int:
         require(all(within(a, b, K2_RTOL,
                            K2_ATOL + K2_SCALE * float(b.abs().max()))
                     for a, b in zip(got, want)), f"K2 vs plain at B={B2}")
-        if k2_inputs is None:  # the potential's shape, timed in phase 8
+        if k2_inputs is None:  # the potential's shape, timed in phase 12
             k2_inputs, k2_err = args, err
+        else:
+            k2_large = args
 
     # K3's stores and K4 at the potential's 24 parameter sets (4 chains x
     # 6 conditions) and its simulated data (phase 7 makes both)
@@ -666,6 +737,7 @@ def main() -> int:
         f"{statistics.median(warm) * 1e3:.3f} ms of "
         f"{[round(w * 1e3, 3) for w in warm]}")
     wall, busy, n_events, named = profile_ms(grad_path, names)
+    k2_in_path = named["gains_bwd"] if n_events else None
     if n_events:
         log(f"gradient path under torch.profiler: wall {wall:.2f} ms, device "
             f"busy {busy:.3f} ms ({100 * busy / wall:.2f}% of wall) over "
@@ -676,6 +748,8 @@ def main() -> int:
     else:
         log("gradient path under torch.profiler: no device events recorded; "
             "device busy share not measured")
+    log(f"[{card}] gradient path repeated: "
+        f"{smi_text(smi_during(grad_path))}")
 
     # free the gradient path's graph before the delay phases
     del pmodel, model64, pot, grad, pot64, grad64, joint, sets
@@ -1031,6 +1105,15 @@ def main() -> int:
     k3_st_bound, k3_st_by = bound(ll_work(LL_SETS, LL_TRIALS, 4, 2, T,
                                           stores=True))
     k2_ms = cuda_ms(lambda: fused_gains_vjp(*k2_inputs))
+    k2_large_ms = cuda_ms(lambda: fused_gains_vjp(*k2_large))
+    k2_smi = smi_during(lambda: [fused_gains_vjp(*k2_inputs)
+                                 for _ in range(20)])
+    # K2's own device time, from the profiler over 20 launches: at 24 specs
+    # the kernel is shorter than the wrapper's host work per call, which
+    # then sets the CUDA events' time
+    k2_device = [kernel_device_ms(
+        lambda: [fused_gains_vjp(*a) for _ in range(20)], "gains_bwd")
+        for a in (k2_inputs, k2_large)]
     k2_plain = cuda_ms(lambda: fused_gains_vjp_reference(*k2_inputs), runs=3,
                        launches=1)
     k4_ms = cuda_ms(lambda: conditioned_log_likelihood_vjp(*k4_args))
@@ -1039,6 +1122,9 @@ def main() -> int:
         launches=1)
     k2_bound, k2_by = bound(gains_bwd_work(CHAINS * CONDITIONS, 2, 1, 2,
                                            T_FIT))
+    k2_large_shape = tuple(k2_large[6].shape[:2])  # (T, B)
+    k2_large_bound, k2_large_by = bound(gains_bwd_work(
+        k2_large_shape[1], 2, 1, 2, k2_large_shape[0]))
     k4_bound, k4_by = bound(ll_bwd_work(F4.shape[0], LL_TRIALS, 4, 2,
                                         T_FIT))
     P5 = F5.shape[0]
@@ -1105,7 +1191,15 @@ def main() -> int:
         f"({k3_st_by})")
     log(f"[{card}] K2 gains_bwd B={CHAINS * CONDITIONS} T={T_FIT}: "
         f"{k2_ms:.4f} ms; plain {k2_plain:.2f} ms; bound {k2_bound:.6f} ms "
-        f"({k2_by}); launches per value+grad {grad_launches['gains_bwd']}")
+        f"({k2_by}); launches per value+grad {grad_launches['gains_bwd']}; "
+        f"B={k2_large_shape[1]} T={k2_large_shape[0]}: {k2_large_ms:.4f} ms, "
+        f"bound {k2_large_bound:.6f} ms ({k2_large_by}); device time a launch "
+        f"(torch.profiler, mean over the K2 kernels recorded of 20 launches): "
+        + ", ".join("not measured" if v is None else f"{v:.4f} ms ({c} kernels)"
+                    for v, c in k2_device)
+        + "; in the gradient path "
+        + ("not measured" if k2_in_path is None else f"{k2_in_path:.4f} ms"))
+    log(f"[{card}] K2 repeated (20 launches a call): {smi_text(k2_smi)}")
     log(f"[{card}] K4 ll_bwd P={F4.shape[0]} n={LL_TRIALS} T={T_FIT}: "
         f"{k4_ms:.4f} ms; plain "
         f"{k4_plain:.2f} ms; bound {k4_bound:.5f} ms ({k4_by}); launches per "
@@ -1146,7 +1240,11 @@ def main() -> int:
          "replaces": "lqg_tpu/ops/pallas/gains.py:237",
          "launches": grad_launches["gains_bwd"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None},
+         "bound_by": k2_by, "library_ms": None, "device_ms": k2_device[0][0],
+         "in_path_ms": k2_in_path,
+         "ms_by_shape": {f"B={CHAINS * CONDITIONS} T={T_FIT}": k2_ms,
+                         f"B={k2_large_shape[1]} T={k2_large_shape[0]}":
+                         k2_large_ms}},
         {"name": "ll_bwd", "route": "cuda",
          "source": "lqg_tpu_torch/csrc/likelihood.cu",
          "replaces": "lqg_tpu/ops/pallas/likelihood.py:270",

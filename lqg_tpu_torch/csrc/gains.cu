@@ -1,5 +1,5 @@
 // K1: fused Riccati backward + Kalman forward gains, one thread per particle,
-// and K2, its analytic adjoint.
+// and K2, its analytic adjoint, one thread block per particle.
 //
 // K1 replaces lqg_tpu/ops/pallas/gains.py:_gains_merged_kernel, K2 replaces
 // gains.py:_gains_adjoint_kernel.  Wrappers, the torch.autograd.Function
@@ -28,6 +28,10 @@
 // straight to their final slots.
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstdint>
+
+#include "pipeline.cuh"
 #include "small_matrix.cuh"
 
 namespace {
@@ -121,39 +125,191 @@ __global__ void __launch_bounds__(128)
 }
 
 // K2: the analytic adjoint of K1 (gains.py:244-280 for the equations, with
-// code at :320-378), one thread per particle.
+// code at :320-378).  One thread block per particle.
 //
-// Per particle, one loop over i = 0..T-1 runs both adjoint recursions with
-// independent carries: the Riccati adjoint (its primal ran backward in time)
-// reads S, Lbar, Hbar at slot i ascending, the Kalman adjoint reads P, Kbar
-// at slot T-1-i descending.  H, G, L, Pp, PFt, Gk and K are recomputed from
-// the stores with K1's arithmetic (the same sym_inv and eps), and the Kalman
-// carry is kept in the symmetric gauge (see below).  Cotangents of
-// A, B, Q, R, F, VV and WW accumulate in registers; those of Qf and Sigma0
-// are the final carries.  Outputs are (B, ., .), written once at the end.
+// The adjoint runs two recursions with independent carries over i = 0..T-1:
+// the Riccati adjoint (its primal ran backward in time) reads S, Lbar, Hbar
+// at slot i ascending, the Kalman adjoint reads P, Kbar at slot T-1-i
+// descending.  Of a step's work only two small linear maps are serial:
+//   Riccati:  Lb = Lbar + (HL Sb^T + (G Sb^T + (G Sb + H (L Sb))))
+//             Hb = (Hbar + L (Sb L^T)) + (Hinv Lb) (G^T Hinv)
+//             Gbar = (L Sb + L Sb^T) - Hinv Lb
+//             SBbar = B Hb,  SAbar = A Sb + B Gbar
+//             Sb <- SBbar B^T + SAbar A^T
+//   Kalman:   Pb = sym(Pb);  Kb = Kbar - Pb PFt;  KbGki = Kb Gki
+//             PFtb = -(Pb^T K) + KbGki;  Gkbar = -(Gki (PFt^T KbGki))
+//             PFtb += F^T Gkbar;  Ppbar = Pb + PFtb F
+//             Pb <- A^T (Ppbar A)
+// Their coefficients (H, G, Hinv, L, HL from S_t; Pp, PFt, Gki, K from P_t,
+// recomputed with K1's arithmetic: the same sym_inv, eps and order) hold no
+// carry, and the cotangents of A, B, Q, R, F, VV and WW are sums over the
+// steps of terms that the carries feed but never read:
+//   Riccati:  R += Hb,  Q += Sb,  A += SA Sb^T + S SAbar,
+//             B += SA Gbar^T + (SB Hb^T + S SBbar)
+//   Kalman:   WW += Gkbar,  F += Gkbar PFt^T + PFtb^T Pp,  VV += Ppbar,
+//             A += (Ppbar + Ppbar^T) (A P)
+// (Sb and the symmetrized Pb entering each step; A's cotangent is the
+// Riccati total plus the Kalman total).  Those of Qf and Sigma0 are the
+// final carries.  The Kalman carry is kept in the symmetric gauge, as the
+// scan twin's symmetrize() projects it: the equations above assume a
+// symmetric P and are no adjoint on antisymmetric matrices; unprojected,
+// the carry can grow (spectral radius above 1.05 at c = 0.01, see
+// tests/test_torch_gains_grad.py) and F's cotangent drowns in its
+// cancellation at long horizons.
 //
-// Bound on an H100: latency, as K1.  It reads 2 n^2 + mn + m^2 + np floats
-// per particle-step (56 B at (2, 1, 2)) and does ~3x K1's operations, but
-// each thread walks a T-step chain of dependent scalar operations.  The
-// carries, the accumulators and the spec stay in registers (no shared or
-// local memory), there is no time chunking (any T), and each step reads its
-// stores straight from their slots.
-template <int N, int M, int P>
-__global__ void __launch_bounds__(128)
-    gains_bwd(const float* __restrict__ A_, const float* __restrict__ B_,
-              const float* __restrict__ R_, const float* __restrict__ F_,
-              const float* __restrict__ VV_, const float* __restrict__ WW_,
-              const float* __restrict__ S_st, const float* __restrict__ P_st,
-              const float* __restrict__ Lbar_, const float* __restrict__ Hbar_,
-              const float* __restrict__ Kbar_, float* __restrict__ Abar_,
-              float* __restrict__ Bbar_, float* __restrict__ Qbar_,
-              float* __restrict__ Rbar_, float* __restrict__ Qfbar_,
-              float* __restrict__ Fbar_, float* __restrict__ VVbar_,
-              float* __restrict__ WWbar_, float* __restrict__ S0bar_,
-              int batch, int T, float eps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
+// The block walks T in chunks of kChunk = 32 steps, one lane a step, through
+// a ring of kSlots chunk slots in shared memory, with five warps in roles:
+// - warp 0 copies a chunk's inputs into its slot with 4-byte cp.async (rows
+//   are strided by batch x size in the (T, B, ., .) layout) that arrive on
+//   the slot's mbarrier: S_t, Lbar_t, Hbar_t at ascending slots, P_t, Kbar_t
+//   at descending ones;
+// - warp 3 recomputes the chunk's coefficients, lane l for step l, and
+//   writes them into the slot;
+// - lane 0 of warp 1 walks the Riccati carry, lane 0 of warp 2 the Kalman
+//   carry (two warps, so two schedulers); each reads its step's
+//   coefficients as one record of float4s, loaded a step ahead while the
+//   step before computes, and writes the step's carry-derived quantities as
+//   another; nothing else runs on these lanes;
+// - warp 4 forms each step's contributions, lane l for step l (zero past
+//   T), sums the chunk over its lanes with the transpose reduction of
+//   pipeline.cuh (a fixed xor tree) and adds the chunk sums to running
+//   totals in chunk order: no atomics, the same bits on every launch.
+// The copy warp runs up to three chunks ahead of the accumulate warp, the
+// recompute warp with it; mbarriers hand each slot from role to role
+// (filled, coefficients ready, carried, free).  Any T works: the last chunk
+// is masked.
+//
+// Bound on an H100: latency.  The bytes (56 B a particle-step at (2, 1, 2))
+// and operations would take the card well under a microsecond at B = 24,
+// T = 1008; the time is the two carry lanes' chains of T dependent steps,
+// each ~100 instructions issued in order by one lane (the Kalman step is
+// the longer and sets the time), plus the pipeline's fill and drain.  The
+// recompute and the sums run beside the chains, a chunk apart.  Splitting
+// a step over lanes would cost more shuffle rounds than the step takes.
+constexpr int kChunk = 32;  // steps a chunk: one lane a step
+constexpr int kSlots = 4;   // chunk slots of the ring
+constexpr int kBwdThreads = 160;  // copy, two carry, recompute, sum warps
+constexpr int kBwdBarBytes = 128;  // room for 16 mbarriers
 
+// mbarriers, kSlots of each
+constexpr int kLoaded = 0;            // copy warp -> slot filled (32 arrivals)
+constexpr int kReady = kSlots;        // recompute warp -> coefficients (32)
+constexpr int kCarried = 2 * kSlots;  // carry lanes -> their outputs (2)
+constexpr int kFree = 3 * kSlots;     // accumulate warp -> slot released (32)
+
+constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+
+// A chunk slot: arrays of kChunk per-step records, in floats.  The carry
+// lanes' records are multiples of four floats, read and written as float4s.
+template <int N, int M, int P>
+struct BwdSlot {
+  // Riccati carry lane's coefficients: Lbar, Hbar (copied); HL, G, H, L,
+  // Hinv, G^T Hinv (recomputed)
+  static constexpr int oLbar = 0, oHbar = M * N, oHL = oHbar + M * M,
+                       oG = oHL + M * N, oH = oG + M * N, oL = oH + M * M,
+                       oHinv = oL + M * N, oGtHinv = oHinv + M * M,
+                       RC = round4(oGtHinv + N * M);
+  // its outputs: Sb (entering the step), Hb, Gbar, SBbar, SAbar
+  static constexpr int oSb = 0, oHb = N * N, oGbar = oHb + M * M,
+                       oSBbar = oGbar + M * N, oSAbar = oSBbar + N * M,
+                       RO = round4(oSAbar + N * N);
+  // Kalman carry lane's coefficients: Kbar (copied); PFt, Gki, K
+  static constexpr int oKbar = 0, oPFt = N * P, oGki = 2 * N * P,
+                       oK = oGki + P * P, KC = round4(oK + N * P);
+  // its outputs: Gkbar, PFtb, Ppbar
+  static constexpr int oGkbar = 0, oPFtb = P * P, oPpbar = oPFtb + N * P,
+                       KO = round4(oPpbar + N * N);
+  // S (copied); SA, SB (recomputed); P (copied); A P, Pp (recomputed)
+  static constexpr int SS = N * N, RA = N * N + N * M, PS = N * N,
+                       KA = 2 * N * N;
+  static constexpr int aRC = 0, aRO = aRC + kChunk * RC,
+                       aKC = aRO + kChunk * RO, aKO = aKC + kChunk * KC,
+                       aS = aKO + kChunk * KO, aRA = aS + kChunk * SS,
+                       aP = aRA + kChunk * RA, aKA = aP + kChunk * PS,
+                       floats = aKA + kChunk * KA;
+  static constexpr size_t bytes =
+      kBwdBarBytes + sizeof(float) * (size_t)kSlots * floats;
+  // the accumulate warp's sums, one value a lane: Rbar, Qbar, A's Riccati
+  // part, Bbar; and WWbar, Fbar, VVbar, A's Kalman part
+  static constexpr int vR = 0, vQ = M * M, vAR = vQ + N * N,
+                       vB = vAR + N * N, nR = vB + N * M;
+  static constexpr int vW = 0, vF = P * P, vV = vF + P * N,
+                       vAK = vV + N * N, nK = vAK + N * N;
+  static_assert(nR <= 32 && nK <= 32, "a chunk's sums exceed one warp");
+};
+
+template <int S>
+__device__ __forceinline__ void load4(const float* src, float* dst) {
+  static_assert(S % 4 == 0, "float4 record");
+#pragma unroll
+  for (int k = 0; k < S / 4; ++k) {
+    const float4 v = reinterpret_cast<const float4*>(src)[k];
+    dst[4 * k] = v.x;
+    dst[4 * k + 1] = v.y;
+    dst[4 * k + 2] = v.z;
+    dst[4 * k + 3] = v.w;
+  }
+}
+
+template <int S>
+__device__ __forceinline__ void store4(float* dst, const float* src) {
+  static_assert(S % 4 == 0, "float4 record");
+#pragma unroll
+  for (int k = 0; k < S / 4; ++k)
+    reinterpret_cast<float4*>(dst)[k] =
+        make_float4(src[4 * k], src[4 * k + 1], src[4 * k + 2], src[4 * k + 3]);
+}
+
+// Stages `len` rows of SZ floats into records of STRIDE floats: row l is
+// this particle's entry at slot first + dir l of a (T, batch, SZ) array.
+template <int SZ, int STRIDE>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
+                                      int first, int dir, int len, int b,
+                                      int batch, int lane) {
+  for (int k = lane; k < len * SZ; k += 32) {
+    const int l = k / SZ, e = k - l * SZ;
+    cp_async4(dst + l * STRIDE + e,
+              src + ((size_t)(first + dir * l) * batch + b) * SZ + e);
+  }
+}
+
+template <int N, int M, int P>
+__device__ __forceinline__ void bwd_copy(float* ring, uint64_t* bar,
+                                         const float* __restrict__ S_st,
+                                         const float* __restrict__ P_st,
+                                         const float* __restrict__ Lbar_,
+                                         const float* __restrict__ Hbar_,
+                                         const float* __restrict__ Kbar_,
+                                         int b, int batch, int T, int NC,
+                                         int lane) {
+  using L = BwdSlot<N, M, P>;
+  for (int c = 0; c < NC; ++c) {
+    const int s = c % kSlots, u = c / kSlots;
+    if (u > 0) mbar_wait(bar + kFree + s, (u - 1) & 1);
+    float* slot = ring + s * L::floats;
+    const int i0 = c * kChunk, len = min(kChunk, T - i0);
+    stage<N * N, L::SS>(slot + L::aS, S_st, i0, 1, len, b, batch, lane);
+    stage<M * N, L::RC>(slot + L::aRC + L::oLbar, Lbar_, i0, 1, len, b, batch,
+                        lane);
+    stage<M * M, L::RC>(slot + L::aRC + L::oHbar, Hbar_, i0, 1, len, b, batch,
+                        lane);
+    stage<N * N, L::PS>(slot + L::aP, P_st, T - 1 - i0, -1, len, b, batch,
+                        lane);
+    stage<N * P, L::KC>(slot + L::aKC + L::oKbar, Kbar_, T - 1 - i0, -1, len,
+                        b, batch, lane);
+    cp_async_arrive(bar + kLoaded + s);
+  }
+}
+
+// K1's primal quantities of the chunk's steps, lane l for step l.  Lanes
+// past T compute on stale slot entries; nothing reads what they write.
+template <int N, int M, int P>
+__device__ __forceinline__ void bwd_recompute(
+    float* ring, uint64_t* bar, const float* __restrict__ A_,
+    const float* __restrict__ B_, const float* __restrict__ R_,
+    const float* __restrict__ F_, const float* __restrict__ VV_,
+    const float* __restrict__ WW_, int b, int NC, float eps, int lane) {
+  using L = BwdSlot<N, M, P>;
   float A[N * N], Bm[N * M], R[M * M], F[P * N], VV[N * N], WW[P * P];
   load<N * N>(A_ + (size_t)b * N * N, A);
   load<N * M>(B_ + (size_t)b * N * M, Bm);
@@ -165,27 +321,13 @@ __global__ void __launch_bounds__(128)
   transpose<N, N>(A, At);
   transpose<N, M>(Bm, Bt);
   transpose<P, N>(F, Ft);
-
-  float Sb[N * N], Pb[N * N], aA[N * N], aB[N * M], aQ[N * N], aR[M * M],
-      aF[P * N], aV[N * N], aW[P * P];
-  fill<N * N>(Sb, 0.0f);
-  fill<N * N>(Pb, 0.0f);
-  fill<N * N>(aA, 0.0f);
-  fill<N * M>(aB, 0.0f);
-  fill<N * N>(aQ, 0.0f);
-  fill<M * M>(aR, 0.0f);
-  fill<P * N>(aF, 0.0f);
-  fill<N * N>(aV, 0.0f);
-  fill<P * P>(aW, 0.0f);
-
-  for (int i = 0; i < T; ++i) {
-    // --- Riccati adjoint (ascending slot i) ---
-    const size_t si = (size_t)i * batch + b;
-    float S[N * N], Lb[M * N], Hb[M * M];
-    load<N * N>(S_st + si * (N * N), S);
-    load<M * N>(Lbar_ + si * (M * N), Lb);
-    load<M * M>(Hbar_ + si * (M * M), Hb);
-
+  for (int c = 0; c < NC; ++c) {
+    const int s = c % kSlots;
+    mbar_wait(bar + kLoaded + s, (c / kSlots) & 1);
+    float* slot = ring + s * L::floats;
+    // Riccati: SB, SA, H, G, Hinv, L, HL, G^T Hinv from S
+    float S[N * N];
+    load<N * N>(slot + L::aS + lane * L::SS, S);
     float SB[N * M], SA[N * N], BtSB[M * M], H[M * M], G[M * N];
     matmul<N, N, M>(S, Bm, SB);
     matmul<N, N, N>(S, A, SA);
@@ -193,98 +335,30 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
     for (int k = 0; k < M * M; ++k) H[k] = R[k] + BtSB[k];
     matmul<M, N, N>(Bt, SA, G);
-    float Hinv[M * M], HinvG[M * N], L[M * N], HL[M * N];
+    float Hinv[M * M], HinvG[M * N], Lg[M * N], HL[M * N], Gt[N * M],
+        GtHinv[N * M];
     sym_inv<M>(H, eps, Hinv);
     matmul<M, M, N>(Hinv, G, HinvG);
 #pragma unroll
-    for (int k = 0; k < M * N; ++k) L[k] = -HinvG[k];
-    matmul<M, M, N>(H, L, HL);
-
-    // Lb += HL Sb^T + (G Sb^T + (G Sb + H (L Sb)))
-    float Sbt[N * N], HLSbt[M * N], GSbt[M * N], GSb[M * N], LSb[M * N],
-        HLSb[M * N];
-    transpose<N, N>(Sb, Sbt);
-    matmul<M, N, N>(HL, Sbt, HLSbt);
-    matmul<M, N, N>(G, Sbt, GSbt);
-    matmul<M, N, N>(G, Sb, GSb);
-    matmul<M, N, N>(L, Sb, LSb);
-    matmul<M, M, N>(H, LSb, HLSb);
-#pragma unroll
-    for (int k = 0; k < M * N; ++k)
-      Lb[k] = Lb[k] + (HLSbt[k] + (GSbt[k] + (GSb[k] + HLSb[k])));
-    // Hb += L (Sb L^T);  Hb += (Hinv Lb) (G^T Hinv)
-    float Lt[N * M], SbLt[N * M], LSbLt[M * M];
-    transpose<M, N>(L, Lt);
-    matmul<N, N, M>(Sb, Lt, SbLt);
-    matmul<M, N, M>(L, SbLt, LSbLt);
-#pragma unroll
-    for (int k = 0; k < M * M; ++k) Hb[k] = Hb[k] + LSbLt[k];
-    float HinvLb[M * N], Gt[N * M], GtHinv[N * M], HbL[M * M];
-    matmul<M, M, N>(Hinv, Lb, HinvLb);
+    for (int k = 0; k < M * N; ++k) Lg[k] = -HinvG[k];
+    matmul<M, M, N>(H, Lg, HL);
     transpose<M, N>(G, Gt);
     matmul<N, M, M>(Gt, Hinv, GtHinv);
-    matmul<M, N, M>(HinvLb, GtHinv, HbL);
-#pragma unroll
-    for (int k = 0; k < M * M; ++k) Hb[k] = Hb[k] + HbL[k];
-    // Gbar = (L Sb + L Sb^T) - Hinv Lb
-    float LSbt[M * N], Gbar[M * N];
-    matmul<M, N, N>(L, Sbt, LSbt);
-#pragma unroll
-    for (int k = 0; k < M * N; ++k) Gbar[k] = (LSb[k] + LSbt[k]) - HinvLb[k];
-
-#pragma unroll
-    for (int k = 0; k < M * M; ++k) aR[k] = aR[k] + Hb[k];
-#pragma unroll
-    for (int k = 0; k < N * N; ++k) aQ[k] = aQ[k] + Sb[k];
-    float SBbar[N * M], ASb[N * N], BGbar[N * N], SAbar[N * N];
-    matmul<N, M, M>(Bm, Hb, SBbar);
-    matmul<N, N, N>(A, Sb, ASb);
-    matmul<N, M, N>(Bm, Gbar, BGbar);
-#pragma unroll
-    for (int k = 0; k < N * N; ++k) SAbar[k] = ASb[k] + BGbar[k];
-    // aA += SA Sb^T + S SAbar
-    float SASbt[N * N], SSAbar[N * N];
-    matmul<N, N, N>(SA, Sbt, SASbt);
-    matmul<N, N, N>(S, SAbar, SSAbar);
-#pragma unroll
-    for (int k = 0; k < N * N; ++k) aA[k] = aA[k] + (SASbt[k] + SSAbar[k]);
-    // aB += SA Gbar^T + (SB Hb^T + S SBbar)
-    float Gbart[N * M], Hbt[M * M], SAGbt[N * M], SBHbt[N * M], SSBbar[N * M];
-    transpose<M, N>(Gbar, Gbart);
-    transpose<M, M>(Hb, Hbt);
-    matmul<N, N, M>(SA, Gbart, SAGbt);
-    matmul<N, M, M>(SB, Hbt, SBHbt);
-    matmul<N, N, M>(S, SBbar, SSBbar);
-#pragma unroll
-    for (int k = 0; k < N * M; ++k)
-      aB[k] = aB[k] + (SAGbt[k] + (SBHbt[k] + SSBbar[k]));
-    // Sb <- SBbar B^T + SAbar A^T
-    float SBbarBt[N * N], SAbarAt[N * N];
-    matmul<N, M, N>(SBbar, Bt, SBbarBt);
-    matmul<N, N, N>(SAbar, At, SAbarAt);
-#pragma unroll
-    for (int k = 0; k < N * N; ++k) Sb[k] = SBbarBt[k] + SAbarAt[k];
-
-    // --- Kalman adjoint (descending slot T-1-i) ---
-    // The carry in the symmetric gauge, as the scan twin's symmetrize()
-    // projects it.  The equations below assume a symmetric P and are no
-    // adjoint on antisymmetric matrices: unprojected, the carry can grow
-    // (spectral radius above 1.05 at c = 0.01, see
-    // tests/test_torch_gains_grad.py) and F's cotangent drowns in its
-    // cancellation at long horizons.
-    float Pbs[N * N];
-#pragma unroll
-    for (int r = 0; r < N; ++r)
-#pragma unroll
-      for (int c = 0; c < N; ++c)
-        Pbs[r * N + c] = 0.5f * (Pb[r * N + c] + Pb[c * N + r]);
-    store<N * N>(Pb, Pbs);
-    const size_t sk = (size_t)(T - 1 - i) * batch + b;
-    float Pc[N * N], Kb[N * P];
-    load<N * N>(P_st + sk * (N * N), Pc);
-    load<N * P>(Kbar_ + sk * (N * P), Kb);
-
-    float PAt[N * N], Pp[N * N], PFt[N * P], FPFt[P * P], Gk[P * P];
+    float* ra = slot + L::aRA + lane * L::RA;
+    store<N * N>(ra, SA);
+    store<N * M>(ra + N * N, SB);
+    float* rc = slot + L::aRC + lane * L::RC;
+    store<M * N>(rc + L::oHL, HL);
+    store<M * N>(rc + L::oG, G);
+    store<M * M>(rc + L::oH, H);
+    store<M * N>(rc + L::oL, Lg);
+    store<M * M>(rc + L::oHinv, Hinv);
+    store<N * M>(rc + L::oGtHinv, GtHinv);
+    // Kalman: A P, Pp, PFt, Gki, K from P
+    float Pc[N * N];
+    load<N * N>(slot + L::aP + lane * L::PS, Pc);
+    float PAt[N * N], Pp[N * N], PFt[N * P], FPFt[P * P], Gk[P * P],
+        Gki[P * P], K[N * P], AP[N * N];
     matmul<N, N, N>(Pc, At, PAt);
     matmul<N, N, N>(A, PAt, Pp);
 #pragma unroll
@@ -293,73 +367,334 @@ __global__ void __launch_bounds__(128)
     matmul<P, N, P>(F, PFt, FPFt);
 #pragma unroll
     for (int k = 0; k < P * P; ++k) Gk[k] = FPFt[k] + WW[k];
-    float Gki[P * P], K[N * P];
     sym_inv<P>(Gk, eps, Gki);
     matmul<N, P, P>(PFt, Gki, K);
+    matmul<N, N, N>(A, Pc, AP);
+    float* ka = slot + L::aKA + lane * L::KA;
+    store<N * N>(ka, AP);
+    store<N * N>(ka + N * N, Pp);
+    float* kc = slot + L::aKC + lane * L::KC;
+    store<N * P>(kc + L::oPFt, PFt);
+    store<P * P>(kc + L::oGki, Gki);
+    store<N * P>(kc + L::oK, K);
+    mbar_arrive(bar + kReady + s);
+  }
+}
 
-    // Kb' = Kb - Pb PFt;  PFtb = -(Pb^T K) + Kb' Gki
-    float PbPFt[N * P], Pbt[N * N], PbtK[N * P], KbGki[N * P], PFtb[N * P];
-    matmul<N, N, P>(Pb, PFt, PbPFt);
+// The Riccati adjoint carry, one lane; Qf's cotangent is its final value.
+template <int N, int M, int P>
+__device__ __forceinline__ void bwd_riccati(float* ring, uint64_t* bar,
+                                            const float* __restrict__ A_,
+                                            const float* __restrict__ B_,
+                                            float* __restrict__ Qfbar_, int b,
+                                            int T, int NC) {
+  using L = BwdSlot<N, M, P>;
+  float A[N * N], Bm[N * M], At[N * N], Bt[M * N];
+  load<N * N>(A_ + (size_t)b * N * N, A);
+  load<N * M>(B_ + (size_t)b * N * M, Bm);
+  transpose<N, N>(A, At);
+  transpose<N, M>(Bm, Bt);
+  float Sb[N * N];
+  fill<N * N>(Sb, 0.0f);
+  for (int c = 0; c < NC; ++c) {
+    const int s = c % kSlots;
+    mbar_wait(bar + kReady + s, (c / kSlots) & 1);
+    const float* rc = ring + s * L::floats + L::aRC;
+    float* ro = ring + s * L::floats + L::aRO;
+    const int len = min(kChunk, T - c * kChunk);
+    float cur[L::RC];
+    load4<L::RC>(rc, cur);
+    for (int l = 0; l < len; ++l) {
+      float nxt[L::RC];  // the next step's coefficients, loaded ahead
+      load4<L::RC>(rc + ((l + 1) & (kChunk - 1)) * L::RC, nxt);
+      const float* Lbar = cur + L::oLbar;
+      const float* Hbar = cur + L::oHbar;
+      const float* HL = cur + L::oHL;
+      const float* G = cur + L::oG;
+      const float* H = cur + L::oH;
+      const float* Lg = cur + L::oL;
+      const float* Hinv = cur + L::oHinv;
+      const float* GtHinv = cur + L::oGtHinv;
+      float o[L::RO];
+      fill<L::RO>(o, 0.0f);
+      float* Hb = o + L::oHb;
+      float* Gbar = o + L::oGbar;
+      float* SBbar = o + L::oSBbar;
+      float* SAbar = o + L::oSAbar;
+      store<N * N>(o + L::oSb, Sb);
+      // Lb = Lbar + (HL Sb^T + (G Sb^T + (G Sb + H (L Sb))))
+      float Sbt[N * N], HLSbt[M * N], GSbt[M * N], GSb[M * N], LSb[M * N],
+          HLSb[M * N], Lb[M * N];
+      transpose<N, N>(Sb, Sbt);
+      matmul<M, N, N>(HL, Sbt, HLSbt);
+      matmul<M, N, N>(G, Sbt, GSbt);
+      matmul<M, N, N>(G, Sb, GSb);
+      matmul<M, N, N>(Lg, Sb, LSb);
+      matmul<M, M, N>(H, LSb, HLSb);
 #pragma unroll
-    for (int k = 0; k < N * P; ++k) Kb[k] = Kb[k] - PbPFt[k];
-    transpose<N, N>(Pb, Pbt);
-    matmul<N, N, P>(Pbt, K, PbtK);
-    matmul<N, P, P>(Kb, Gki, KbGki);
+      for (int k = 0; k < M * N; ++k)
+        Lb[k] = Lbar[k] + (HLSbt[k] + (GSbt[k] + (GSb[k] + HLSb[k])));
+      // Hb = (Hbar + L (Sb L^T)) + (Hinv Lb) (G^T Hinv)
+      float Lt[N * M], SbLt[N * M], LSbLt[M * M], HinvLb[M * N], HbL[M * M];
+      transpose<M, N>(Lg, Lt);
+      matmul<N, N, M>(Sb, Lt, SbLt);
+      matmul<M, N, M>(Lg, SbLt, LSbLt);
+      matmul<M, M, N>(Hinv, Lb, HinvLb);
+      matmul<M, N, M>(HinvLb, GtHinv, HbL);
 #pragma unroll
-    for (int k = 0; k < N * P; ++k) PFtb[k] = -PbtK[k] + KbGki[k];
-    // Gkbar = -(Gki (PFt^T (Kb' Gki)))
-    float PFtT[P * N], PFtTKbGki[P * P], Gkbar[P * P];
+      for (int k = 0; k < M * M; ++k) Hb[k] = (Hbar[k] + LSbLt[k]) + HbL[k];
+      // Gbar = (L Sb + L Sb^T) - Hinv Lb
+      float LSbt[M * N];
+      matmul<M, N, N>(Lg, Sbt, LSbt);
+#pragma unroll
+      for (int k = 0; k < M * N; ++k)
+        Gbar[k] = (LSb[k] + LSbt[k]) - HinvLb[k];
+      // SBbar = B Hb;  SAbar = A Sb + B Gbar
+      float ASb[N * N], BGbar[N * N];
+      matmul<N, M, M>(Bm, Hb, SBbar);
+      matmul<N, N, N>(A, Sb, ASb);
+      matmul<N, M, N>(Bm, Gbar, BGbar);
+#pragma unroll
+      for (int k = 0; k < N * N; ++k) SAbar[k] = ASb[k] + BGbar[k];
+      store4<L::RO>(ro + l * L::RO, o);
+      // Sb <- SBbar B^T + SAbar A^T
+      float SBbarBt[N * N], SAbarAt[N * N];
+      matmul<N, M, N>(SBbar, Bt, SBbarBt);
+      matmul<N, N, N>(SAbar, At, SAbarAt);
+#pragma unroll
+      for (int k = 0; k < N * N; ++k) Sb[k] = SBbarBt[k] + SAbarAt[k];
+#pragma unroll
+      for (int k = 0; k < L::RC; ++k) cur[k] = nxt[k];
+    }
+    mbar_arrive(bar + kCarried + s);
+  }
+  store<N * N>(Qfbar_ + (size_t)b * N * N, Sb);
+}
+
+// The Kalman adjoint carry, one lane; Sigma0's cotangent is its final value.
+template <int N, int M, int P>
+__device__ __forceinline__ void bwd_kalman(float* ring, uint64_t* bar,
+                                           const float* __restrict__ A_,
+                                           const float* __restrict__ F_,
+                                           float* __restrict__ S0bar_, int b,
+                                           int T, int NC) {
+  using L = BwdSlot<N, M, P>;
+  float A[N * N], F[P * N], At[N * N], Ft[N * P];
+  load<N * N>(A_ + (size_t)b * N * N, A);
+  load<P * N>(F_ + (size_t)b * P * N, F);
+  transpose<N, N>(A, At);
+  transpose<P, N>(F, Ft);
+  float Pb[N * N];
+  fill<N * N>(Pb, 0.0f);
+  for (int c = 0; c < NC; ++c) {
+    const int s = c % kSlots;
+    mbar_wait(bar + kReady + s, (c / kSlots) & 1);
+    const float* kc = ring + s * L::floats + L::aKC;
+    float* ko = ring + s * L::floats + L::aKO;
+    const int len = min(kChunk, T - c * kChunk);
+    float cur[L::KC];
+    load4<L::KC>(kc, cur);
+    for (int l = 0; l < len; ++l) {
+      float nxt[L::KC];  // the next step's coefficients, loaded ahead
+      load4<L::KC>(kc + ((l + 1) & (kChunk - 1)) * L::KC, nxt);
+      const float* Kbar = cur + L::oKbar;
+      const float* PFt = cur + L::oPFt;
+      const float* Gki = cur + L::oGki;
+      const float* K = cur + L::oK;
+      float o[L::KO];
+      fill<L::KO>(o, 0.0f);
+      float* Gkbar = o + L::oGkbar;
+      float* PFtb = o + L::oPFtb;
+      float* Ppbar = o + L::oPpbar;
+      float Pbs[N * N];
+#pragma unroll
+      for (int r = 0; r < N; ++r)
+#pragma unroll
+        for (int q = 0; q < N; ++q)
+          Pbs[r * N + q] = 0.5f * (Pb[r * N + q] + Pb[q * N + r]);
+      // Kb = Kbar - Pb PFt;  PFtb = -(Pb^T K) + Kb Gki
+      float PbPFt[N * P], Kb[N * P], Pbt[N * N], PbtK[N * P], KbGki[N * P];
+      matmul<N, N, P>(Pbs, PFt, PbPFt);
+#pragma unroll
+      for (int k = 0; k < N * P; ++k) Kb[k] = Kbar[k] - PbPFt[k];
+      transpose<N, N>(Pbs, Pbt);
+      matmul<N, N, P>(Pbt, K, PbtK);
+      matmul<N, P, P>(Kb, Gki, KbGki);
+      // Gkbar = -(Gki (PFt^T (Kb Gki)));  PFtb += F^T Gkbar
+      float PFtT[P * N], PFtTKbGki[P * P], GkiX[P * P], FtGkbar[N * P];
+      transpose<N, P>(PFt, PFtT);
+      matmul<P, N, P>(PFtT, KbGki, PFtTKbGki);
+      matmul<P, P, P>(Gki, PFtTKbGki, GkiX);
+#pragma unroll
+      for (int k = 0; k < P * P; ++k) Gkbar[k] = -GkiX[k];
+      matmul<N, P, P>(Ft, Gkbar, FtGkbar);
+#pragma unroll
+      for (int k = 0; k < N * P; ++k)
+        PFtb[k] = (-PbtK[k] + KbGki[k]) + FtGkbar[k];
+      // Ppbar = Pb + PFtb F
+      float PFtbF[N * N];
+      matmul<N, P, N>(PFtb, F, PFtbF);
+#pragma unroll
+      for (int k = 0; k < N * N; ++k) Ppbar[k] = Pbs[k] + PFtbF[k];
+      store4<L::KO>(ko + l * L::KO, o);
+      // Pb <- A^T (Ppbar A)
+      float PpbarA[N * N];
+      matmul<N, N, N>(Ppbar, A, PpbarA);
+      matmul<N, N, N>(At, PpbarA, Pb);
+#pragma unroll
+      for (int k = 0; k < L::KC; ++k) cur[k] = nxt[k];
+    }
+    mbar_arrive(bar + kCarried + s);
+  }
+  store<N * N>(S0bar_ + (size_t)b * N * N, Pb);
+}
+
+// Each step's contributions, lane l for step l, summed over the chunk by the
+// transpose reduction and added to lane v's running total of value v.
+template <int N, int M, int P>
+__device__ __forceinline__ void bwd_accumulate(
+    float* ring, uint64_t* bar, float* __restrict__ Abar_,
+    float* __restrict__ Bbar_, float* __restrict__ Qbar_,
+    float* __restrict__ Rbar_, float* __restrict__ Fbar_,
+    float* __restrict__ VVbar_, float* __restrict__ WWbar_, int b, int T,
+    int NC, int lane) {
+  using L = BwdSlot<N, M, P>;
+  float totR = 0.0f, totK = 0.0f;
+  for (int c = 0; c < NC; ++c) {
+    const int s = c % kSlots, u = c / kSlots;
+    mbar_wait(bar + kReady + s, u & 1);
+    mbar_wait(bar + kCarried + s, u & 1);
+    const float* slot = ring + s * L::floats;
+    float S[N * N], SA[N * N], SB[N * M], ro[L::RO], AP[N * N], Pp[N * N],
+        PFt[N * P], ko[L::KO];
+    load<N * N>(slot + L::aS + lane * L::SS, S);
+    load<N * N>(slot + L::aRA + lane * L::RA, SA);
+    load<N * M>(slot + L::aRA + lane * L::RA + N * N, SB);
+    load4<L::RO>(slot + L::aRO + lane * L::RO, ro);
+    load<N * N>(slot + L::aKA + lane * L::KA, AP);
+    load<N * N>(slot + L::aKA + lane * L::KA + N * N, Pp);
+    load<N * P>(slot + L::aKC + lane * L::KC + L::oPFt, PFt);
+    load4<L::KO>(slot + L::aKO + lane * L::KO, ko);
+    mbar_arrive(bar + kFree + s);
+    const bool valid = lane < T - c * kChunk;
+
+    const float* Sb = ro + L::oSb;
+    const float* Hb = ro + L::oHb;
+    const float* Gbar = ro + L::oGbar;
+    const float* SBbar = ro + L::oSBbar;
+    const float* SAbar = ro + L::oSAbar;
+    float vR[32];
+    fill<32>(vR, 0.0f);
+    store<M * M>(vR + L::vR, Hb);
+    store<N * N>(vR + L::vQ, Sb);
+    // A += SA Sb^T + S SAbar
+    float Sbt[N * N], SASbt[N * N], SSAbar[N * N];
+    transpose<N, N>(Sb, Sbt);
+    matmul<N, N, N>(SA, Sbt, SASbt);
+    matmul<N, N, N>(S, SAbar, SSAbar);
+#pragma unroll
+    for (int k = 0; k < N * N; ++k) vR[L::vAR + k] = SASbt[k] + SSAbar[k];
+    // B += SA Gbar^T + (SB Hb^T + S SBbar)
+    float Gbart[N * M], Hbt[M * M], SAGbt[N * M], SBHbt[N * M], SSBbar[N * M];
+    transpose<M, N>(Gbar, Gbart);
+    transpose<M, M>(Hb, Hbt);
+    matmul<N, N, M>(SA, Gbart, SAGbt);
+    matmul<N, M, M>(SB, Hbt, SBHbt);
+    matmul<N, N, M>(S, SBbar, SSBbar);
+#pragma unroll
+    for (int k = 0; k < N * M; ++k)
+      vR[L::vB + k] = SAGbt[k] + (SBHbt[k] + SSBbar[k]);
+
+    const float* Gkbar = ko + L::oGkbar;
+    const float* PFtb = ko + L::oPFtb;
+    const float* Ppbar = ko + L::oPpbar;
+    float vK[32];
+    fill<32>(vK, 0.0f);
+    store<P * P>(vK + L::vW, Gkbar);
+    // F += Gkbar PFt^T + PFtb^T Pp
+    float PFtT[P * N], GkbarPFtT[P * N], PFtbT[P * N], PFtbTPp[P * N];
     transpose<N, P>(PFt, PFtT);
-    matmul<P, N, P>(PFtT, KbGki, PFtTKbGki);
-    matmul<P, P, P>(Gki, PFtTKbGki, Gkbar);
-#pragma unroll
-    for (int k = 0; k < P * P; ++k) Gkbar[k] = -Gkbar[k];
-#pragma unroll
-    for (int k = 0; k < P * P; ++k) aW[k] = aW[k] + Gkbar[k];
-    // aF += Gkbar PFt^T;  PFtb += F^T Gkbar;  aF += PFtb^T Pp
-    float GkbarPFtT[P * N], FtGkbar[N * P], PFtbT[P * N], PFtbTPp[P * N];
     matmul<P, P, N>(Gkbar, PFtT, GkbarPFtT);
-#pragma unroll
-    for (int k = 0; k < P * N; ++k) aF[k] = aF[k] + GkbarPFtT[k];
-    matmul<N, P, P>(Ft, Gkbar, FtGkbar);
-#pragma unroll
-    for (int k = 0; k < N * P; ++k) PFtb[k] = PFtb[k] + FtGkbar[k];
     transpose<N, P>(PFtb, PFtbT);
     matmul<P, N, N>(PFtbT, Pp, PFtbTPp);
 #pragma unroll
-    for (int k = 0; k < P * N; ++k) aF[k] = aF[k] + PFtbTPp[k];
-    // Ppbar = Pb + PFtb F;  aV += Ppbar;  aA += (Ppbar + Ppbar^T) (A P)
-    float PFtbF[N * N], Ppbar[N * N];
-    matmul<N, P, N>(PFtb, F, PFtbF);
-#pragma unroll
-    for (int k = 0; k < N * N; ++k) Ppbar[k] = Pb[k] + PFtbF[k];
-#pragma unroll
-    for (int k = 0; k < N * N; ++k) aV[k] = aV[k] + Ppbar[k];
-    float Ppsym[N * N], AP[N * N], PpsymAP[N * N];
+    for (int k = 0; k < P * N; ++k) vK[L::vF + k] = GkbarPFtT[k] + PFtbTPp[k];
+    store<N * N>(vK + L::vV, Ppbar);
+    // A += (Ppbar + Ppbar^T) (A P)
+    float Ppsym[N * N], PpsymAP[N * N];
 #pragma unroll
     for (int r = 0; r < N; ++r)
 #pragma unroll
-      for (int c = 0; c < N; ++c)
-        Ppsym[r * N + c] = Ppbar[r * N + c] + Ppbar[c * N + r];
-    matmul<N, N, N>(A, Pc, AP);
+      for (int q = 0; q < N; ++q)
+        Ppsym[r * N + q] = Ppbar[r * N + q] + Ppbar[q * N + r];
     matmul<N, N, N>(Ppsym, AP, PpsymAP);
 #pragma unroll
-    for (int k = 0; k < N * N; ++k) aA[k] = aA[k] + PpsymAP[k];
-    // Pb <- A^T (Ppbar A)
-    float PpbarA[N * N];
-    matmul<N, N, N>(Ppbar, A, PpbarA);
-    matmul<N, N, N>(At, PpbarA, Pb);
-  }
+    for (int k = 0; k < N * N; ++k) vK[L::vAK + k] = PpsymAP[k];
 
-  store<N * N>(Abar_ + (size_t)b * N * N, aA);
-  store<N * M>(Bbar_ + (size_t)b * N * M, aB);
-  store<N * N>(Qbar_ + (size_t)b * N * N, aQ);
-  store<M * M>(Rbar_ + (size_t)b * M * M, aR);
-  store<N * N>(Qfbar_ + (size_t)b * N * N, Sb);
-  store<P * N>(Fbar_ + (size_t)b * P * N, aF);
-  store<N * N>(VVbar_ + (size_t)b * N * N, aV);
-  store<P * P>(WWbar_ + (size_t)b * P * P, aW);
-  store<N * N>(S0bar_ + (size_t)b * N * N, Pb);
+    // steps past T contribute zeros, whatever their stale entries hold
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      vR[k] = valid ? vR[k] : 0.0f;
+      vK[k] = valid ? vK[k] : 0.0f;
+    }
+    totR = totR + warp_transpose_sum(vR, lane);
+    totK = totK + warp_transpose_sum(vK, lane);
+  }
+  // A's cotangent: the Riccati total plus the Kalman total
+  const int k = lane - L::vAR;
+  const float aK = __shfl_sync(0xffffffffu, totK,
+                               L::vAK + min(max(k, 0), N * N - 1));
+  const size_t nn = (size_t)b * N * N;
+  if (lane < L::vQ) Rbar_[(size_t)b * M * M + lane - L::vR] = totR;
+  else if (lane < L::vAR) Qbar_[nn + lane - L::vQ] = totR;
+  else if (lane < L::vB) Abar_[nn + k] = totR + aK;
+  else if (lane < L::nR) Bbar_[(size_t)b * N * M + lane - L::vB] = totR;
+  if (lane < L::vF) WWbar_[(size_t)b * P * P + lane - L::vW] = totK;
+  else if (lane < L::vV) Fbar_[(size_t)b * P * N + lane - L::vF] = totK;
+  else if (lane < L::vAK) VVbar_[nn + lane - L::vV] = totK;
+}
+
+template <int N, int M, int P>
+__global__ void __launch_bounds__(kBwdThreads)
+    gains_bwd(const float* __restrict__ A_, const float* __restrict__ B_,
+              const float* __restrict__ R_, const float* __restrict__ F_,
+              const float* __restrict__ VV_, const float* __restrict__ WW_,
+              const float* __restrict__ S_st, const float* __restrict__ P_st,
+              const float* __restrict__ Lbar_, const float* __restrict__ Hbar_,
+              const float* __restrict__ Kbar_, float* __restrict__ Abar_,
+              float* __restrict__ Bbar_, float* __restrict__ Qbar_,
+              float* __restrict__ Rbar_, float* __restrict__ Qfbar_,
+              float* __restrict__ Fbar_, float* __restrict__ VVbar_,
+              float* __restrict__ WWbar_, float* __restrict__ S0bar_,
+              int batch, int T, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* ring = reinterpret_cast<float*>(smem + kBwdBarBytes);
+  const int b = blockIdx.x, NC = (T + kChunk - 1) / kChunk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(bar + kLoaded + s, 32);
+      mbar_init(bar + kReady + s, 32);
+      mbar_init(bar + kCarried + s, 2);
+      mbar_init(bar + kFree + s, 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 0)
+    bwd_copy<N, M, P>(ring, bar, S_st, P_st, Lbar_, Hbar_, Kbar_, b, batch, T,
+                      NC, lane);
+  else if (warp == 1 && lane == 0)
+    bwd_riccati<N, M, P>(ring, bar, A_, B_, Qfbar_, b, T, NC);
+  else if (warp == 2 && lane == 0)
+    bwd_kalman<N, M, P>(ring, bar, A_, F_, S0bar_, b, T, NC);
+  else if (warp == 3)
+    bwd_recompute<N, M, P>(ring, bar, A_, B_, R_, F_, VV_, WW_, b, NC, eps,
+                           lane);
+  else if (warp == 4)
+    bwd_accumulate<N, M, P>(ring, bar, Abar_, Bbar_, Qbar_, Rbar_, Fbar_,
+                            VVbar_, WWbar_, b, T, NC, lane);
 }
 
 constexpr int kThreads = 128;
@@ -382,24 +717,31 @@ void launch_fwd(const float* A, const float* B, const float* Q, const float* R,
 }
 
 template <int N, int M, int P>
-void launch_bwd(const float* A, const float* B, const float* R,
-                const float* F, const float* VV, const float* WW,
-                const float* S_st, const float* P_st, const float* Lbar,
-                const float* Hbar, const float* Kbar, float* Abar, float* Bbar,
-                float* Qbar, float* Rbar, float* Qfbar, float* Fbar,
-                float* VVbar, float* WWbar, float* S0bar, int batch, int T,
-                float eps, cudaStream_t stream) {
-  gains_bwd<N, M, P><<<blocks_for(batch), kThreads, 0, stream>>>(
+int launch_bwd(const float* A, const float* B, const float* R, const float* F,
+               const float* VV, const float* WW, const float* S_st,
+               const float* P_st, const float* Lbar, const float* Hbar,
+               const float* Kbar, float* Abar, float* Bbar, float* Qbar,
+               float* Rbar, float* Qfbar, float* Fbar, float* VVbar,
+               float* WWbar, float* S0bar, int batch, int T, float eps,
+               cudaStream_t stream) {
+  constexpr size_t bytes = BwdSlot<N, M, P>::bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      gains_bwd<N, M, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gains_bwd<N, M, P><<<batch, kBwdThreads, bytes, stream>>>(
       A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar, Abar, Bbar, Qbar, Rbar,
       Qfbar, Fbar, VVbar, WWbar, S0bar, batch, T, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Both entries return cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an (n, m, p) that is not instantiated or an empty
-// problem.  K1 writes the stores when S_st and P_st are both given (both
-// null: the store-free variant).
+// Both entries return cudaGetLastError() after the launch (K2: or the error
+// of its shared-memory attribute call), or cudaErrorInvalidValue for an
+// (n, m, p) that is not instantiated or an empty problem.  K1 writes the
+// stores when S_st and P_st are both given (both null: the store-free
+// variant).
 extern "C" int lqg_gains_fwd(const float* A, const float* B, const float* Q,
                              const float* R, const float* Qf, const float* F,
                              const float* VV, const float* WW,
@@ -435,18 +777,20 @@ extern "C" int lqg_gains_bwd(const float* A, const float* B, const float* R,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1 || T < 1) return cudaErrorInvalidValue;
   if (n == 2 && m == 1 && p == 2)
-    launch_bwd<2, 1, 2>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar, Abar,
-                        Bbar, Qbar, Rbar, Qfbar, Fbar, VVbar, WWbar, S0bar,
-                        batch, T, eps, s);
-  else if (n == 2 && m == 1 && p == 1)
-    launch_bwd<2, 1, 1>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar, Abar,
-                        Bbar, Qbar, Rbar, Qfbar, Fbar, VVbar, WWbar, S0bar,
-                        batch, T, eps, s);
-  else if (n == 3 && m == 1 && p == 2)
-    launch_bwd<3, 1, 2>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar, Abar,
-                        Bbar, Qbar, Rbar, Qfbar, Fbar, VVbar, WWbar, S0bar,
-                        batch, T, eps, s);
-  else
-    return cudaErrorInvalidValue;
-  return static_cast<int>(cudaGetLastError());
+    return launch_bwd<2, 1, 2>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
+                               Kbar, Abar, Bbar, Qbar, Rbar, Qfbar, Fbar,
+                               VVbar, WWbar, S0bar, batch, T, eps, s);
+  if (n == 2 && m == 1 && p == 1)
+    return launch_bwd<2, 1, 1>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
+                               Kbar, Abar, Bbar, Qbar, Rbar, Qfbar, Fbar,
+                               VVbar, WWbar, S0bar, batch, T, eps, s);
+  if (n == 3 && m == 1 && p == 2)
+    return launch_bwd<3, 1, 2>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
+                               Kbar, Abar, Bbar, Qbar, Rbar, Qfbar, Fbar,
+                               VVbar, WWbar, S0bar, batch, T, eps, s);
+  return cudaErrorInvalidValue;
 }
+
+// K2's steps a chunk, which the plain version's sum order repeats
+// (lqg_tpu_torch/ops/kernels/gains.py:CHUNK).
+extern "C" int lqg_gains_bwd_chunk() { return kChunk; }

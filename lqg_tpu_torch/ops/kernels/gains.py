@@ -24,13 +24,25 @@ T works, a prime one too) and writes each step's gains straight to their
 final slots, so the chain is the only cost; covering that latency with
 more independent work per SM is left for a later change.
 
-K2 (:func:`fused_gains_vjp`) runs both adjoint recursions in one time loop
-per particle, reading the carries K1 stores on the gradient path (``S_t``
-and ``P_t``, ``(T, B, n, n)``) and recomputing every other intermediate with
-K1's arithmetic; it is latency-bound for the same reason.  Unlike the JAX
-package (``gains.py:785``) the backward does not re-run K1: the forward
-writes the stores once, only when an input needs a gradient.  Also unlike
-it, K2 keeps the Kalman adjoint carry in the symmetric gauge each step, as
+K2 (:func:`fused_gains_vjp`) reads the carries K1 stores on the gradient
+path (``S_t`` and ``P_t``, ``(T, B, n, n)``) and runs both adjoint
+recursions, one thread block per particle.  Of its work only the two
+adjoint carries are serial, two small linear maps a step; K1's primal
+quantities, recomputed from the stores with K1's arithmetic, and the
+cotangent sums hold no carry.  So the block walks T in chunks of
+:data:`CHUNK` steps through a ring of chunk slots in shared memory: a copy
+warp stages the stores and cotangents with ``cp.async`` on mbarriers, a
+recompute warp computes the coefficients of a chunk's steps one lane a
+step, one lane in each of two warps walks the Riccati and the Kalman carry
+on coefficients read from shared memory a step ahead, and an accumulate
+warp forms each step's contributions one lane a step, sums the chunk in a
+fixed order (a shuffle transpose) and adds the chunk sums in chunk order,
+with no atomics.  What bounds it is latency: the two carry lanes' chains
+of T dependent steps, ~100 instructions a step issued in order, with the
+recompute and the sums a chunk apart beside them.  Unlike the JAX package
+(``gains.py:785``) the backward does not re-run K1: the forward writes the
+stores once, only when an input needs a gradient.  Also unlike it, K2
+keeps the Kalman adjoint carry in the symmetric gauge each step, as
 autograd through the scan twin (whose ``symmetrize`` projects it) does: the
 hand-derived Kalman step (``gains.py:266-274``) assumes a symmetric carry,
 and unprojected the carry can grow (a step map of spectral radius above
@@ -41,8 +53,9 @@ to cancellation between huge terms.
 
 The plain PyTorch versions :func:`fused_gains_reference` and
 :func:`fused_gains_vjp_reference` repeat the same arithmetic (same
-closed-form inverses, same ``eps``, same order of the additions); the
-wrappers take them only for tensors on the CPU.
+closed-form inverses, same ``eps``, same order of the additions, K2's sums
+over T in its chunk order, :func:`_chunk_sum`); the wrappers take them
+only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ from lqg_tpu_torch.ops.linalg import mT
 from lqg_tpu_torch.ops.kernels import nvcc
 
 EPS = 1e-12  # added to every determinant before its reciprocal
+CHUNK = 32  # K2's steps a chunk, one lane a step (csrc/gains.cu: kChunk)
 
 # (n, m, p) instantiated in csrc/gains.cu: the dim=1 tracking models
 # (BoundedActor, OptimalActor: (2, 1, 2); RelativeObservation: (2, 1, 1);
@@ -157,61 +171,100 @@ def fused_gains_reference(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int,
                             horizon, stores)
 
 
+def _chunk_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x (T, ...)`` over its leading axis in K2's order: step
+    ``c CHUNK + l`` is lane ``l`` of chunk ``c`` (zeros past T); a chunk's
+    lanes fold by halving (lane l + o onto l, o = 16, 8, 4, 2, 1: the xor
+    tree of the shuffle transpose), and the chunk sums are added to a
+    running total in chunk order."""
+    T = x.shape[0]
+    chunks = -(-T // CHUNK)
+    x = torch.cat([x, x.new_zeros((chunks * CHUNK - T,) + x.shape[1:])])
+    x = x.reshape((chunks, CHUNK) + x.shape[1:])
+    off = CHUNK
+    while off > 1:
+        off //= 2
+        x = x[:, :off] + x[:, off:2 * off]
+    total = torch.zeros_like(x[0, 0])
+    for c in range(chunks):
+        total = total + x[c, 0]
+    return total
+
+
 def fused_gains_vjp_reference(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
                               Kbar):
-    """Plain PyTorch version of K2: batched over particles, a Python loop
-    over T.  Same contract as :func:`fused_gains_vjp`, any float dtype."""
+    """Plain PyTorch version of K2: batched over particles, in the kernel's
+    three parts and order.  Same contract as :func:`fused_gains_vjp`, any
+    float dtype.
+
+    1. K1's primal quantities of every step at once, the Kalman side in
+       carry order (step i reads slot T-1-i);
+    2. a Python loop over T for the two adjoint carries alone, recording
+       what each step's contributions need;
+    3. the contributions of every step at once, summed over T by
+       :func:`_chunk_sum`; A's cotangent is the Riccati total plus the
+       Kalman total.
+    """
     At, Bt, Ft = mT(A), mT(Bm), mT(F)
     T = S_st.shape[0]
-    zero = torch.zeros_like
-    Sb, Pb = zero(S_st[0]), zero(P_st[0])
-    aA, aB, aQ, aR = zero(A), zero(Bm), zero(S_st[0]), zero(R)
-    aF, aV, aW = zero(F), zero(VV), zero(WW)
+    # 1. the recompute
+    S = S_st
+    SB = S @ Bm
+    SA = S @ A
+    H = R + Bt @ SB
+    G = Bt @ SA
+    Hinv = _sym_inv_det(H)[0]
+    L = -(Hinv @ G)
+    HL = H @ L
+    GtHinv = mT(G) @ Hinv
+    P = P_st.flip(0)
+    Pp = A @ (P @ At) + VV
+    PFt = Pp @ Ft
+    Gki = _sym_inv_det(F @ PFt + WW)[0]
+    K = PFt @ Gki
+    AP = A @ P
+    Kbar = Kbar.flip(0)
+    # 2. the carries
+    Sb, Pb = torch.zeros_like(S_st[0]), torch.zeros_like(P_st[0])
+    Sbs, Hbs, Gbars, SBbars, SAbars = [], [], [], [], []
+    Gkbars, PFtbs, Ppbars = [], [], []
     for i in range(T):
-        # Riccati adjoint (ascending slot i)
-        S = S_st[i]
-        SB = S @ Bm
-        SA = S @ A
-        H = R + Bt @ SB
-        G = Bt @ SA
-        Hinv = _sym_inv_det(H)[0]
-        L = -(Hinv @ G)
-        HL = H @ L
+        Sbs.append(Sb)
         Sbt = mT(Sb)
-        LSb = L @ Sb
-        Lb = Lbar[i] + (HL @ Sbt + (G @ Sbt + (G @ Sb + H @ LSb)))
-        Hb = Hbar[i] + L @ (Sb @ mT(L))
-        HinvLb = Hinv @ Lb
-        Hb = Hb + HinvLb @ (mT(G) @ Hinv)
-        Gbar = (LSb + L @ Sbt) - HinvLb
-        aR = aR + Hb
-        aQ = aQ + Sb
+        LSb = L[i] @ Sb
+        Lb = Lbar[i] + (HL[i] @ Sbt + (G[i] @ Sbt + (G[i] @ Sb
+                                                     + H[i] @ LSb)))
+        HinvLb = Hinv[i] @ Lb
+        Hb = (Hbar[i] + L[i] @ (Sb @ mT(L[i]))) + HinvLb @ GtHinv[i]
+        Gbar = (LSb + L[i] @ Sbt) - HinvLb
         SBbar = Bm @ Hb
         SAbar = A @ Sb + Bm @ Gbar
-        aA = aA + (SA @ Sbt + S @ SAbar)
-        aB = aB + (SA @ mT(Gbar) + (SB @ mT(Hb) + S @ SBbar))
+        Hbs.append(Hb)
+        Gbars.append(Gbar)
+        SBbars.append(SBbar)
+        SAbars.append(SAbar)
         Sb = SBbar @ Bt + SAbar @ At
-        # Kalman adjoint (descending slot T-1-i); the carry in the
-        # symmetric gauge, as the scan twin's symmetrize() projects it
+        # the Kalman carry in the symmetric gauge, as the scan twin's
+        # symmetrize() projects it
         Pb = _sym(Pb)
-        P = P_st[T - 1 - i]
-        Pp = A @ (P @ At) + VV
-        PFt = Pp @ Ft
-        Gki = _sym_inv_det(F @ PFt + WW)[0]
-        K = PFt @ Gki
-        Kb = Kbar[T - 1 - i] - Pb @ PFt
-        KbGki = Kb @ Gki
-        PFtb = -(mT(Pb) @ K) + KbGki
-        Gkbar = -(Gki @ (mT(PFt) @ KbGki))
-        aW = aW + Gkbar
-        aF = aF + Gkbar @ mT(PFt)
-        PFtb = PFtb + Ft @ Gkbar
-        aF = aF + mT(PFtb) @ Pp
+        KbGki = (Kbar[i] - Pb @ PFt[i]) @ Gki[i]
+        Gkbar = -(Gki[i] @ (mT(PFt[i]) @ KbGki))
+        PFtb = (-(mT(Pb) @ K[i]) + KbGki) + Ft @ Gkbar
         Ppbar = Pb + PFtb @ F
-        aV = aV + Ppbar
-        aA = aA + (Ppbar + mT(Ppbar)) @ (A @ P)
+        Gkbars.append(Gkbar)
+        PFtbs.append(PFtb)
+        Ppbars.append(Ppbar)
         Pb = At @ (Ppbar @ A)
-    return aA, aB, aQ, aR, Sb, aF, aV, aW, Pb
+    Sb_, Hb, Gbar, SBbar, SAbar, Gkbar, PFtb, Ppbar = (
+        torch.stack(x) for x in (Sbs, Hbs, Gbars, SBbars, SAbars, Gkbars,
+                                 PFtbs, Ppbars))
+    # 3. the contributions and their sums
+    aA = (_chunk_sum(SA @ mT(Sb_) + S @ SAbar)
+          + _chunk_sum((Ppbar + mT(Ppbar)) @ AP))
+    aB = _chunk_sum(SA @ mT(Gbar) + (SB @ mT(Hb) + S @ SBbar))
+    aF = _chunk_sum(Gkbar @ mT(PFt) + mT(PFtb) @ Pp)
+    return (aA, aB, _chunk_sum(Sb_), _chunk_sum(Hb), Sb, aF,
+            _chunk_sum(Ppbar), _chunk_sum(Gkbar), Pb)
 
 
 def fused_gains_available(spec: LQGSpec) -> bool:
@@ -234,6 +287,11 @@ def _lib():
                                   + [ctypes.c_int] * 5
                                   + [ctypes.c_float, ctypes.c_void_p])
     lib.lqg_gains_bwd.restype = ctypes.c_int
+    lib.lqg_gains_bwd_chunk.argtypes = []
+    lib.lqg_gains_bwd_chunk.restype = ctypes.c_int
+    if lib.lqg_gains_bwd_chunk() != CHUNK:
+        raise RuntimeError("csrc/gains.cu's K2 chunk differs from CHUNK: the "
+                           "plain version would sum in another order")
     return lib
 
 

@@ -2,8 +2,11 @@
 
 On the CPU the Function runs the plain versions of K1 (with stores) and K2:
 held against the JAX package's adjoint kernel in interpret mode (float32)
-and against autograd through the plain K1 (float64).  On a card (``-m
-cuda``): K1's stores and K2 against their plain versions.  JAX is imported
+and against autograd through the plain K1 (float64).  The plain K2 runs in
+the kernel's three parts and sum order; it is held against a serial
+per-step oracle (the one time loop of both carries and all sums) in
+float64.  On a card (``-m cuda``): K1's stores and K2 against their plain
+versions, and two K2 launches bit for bit.  JAX is imported
 inside the tests that use it, so that the card's tests collect where JAX
 is not installed.
 """
@@ -53,6 +56,77 @@ def _cotangents(seed, T, B, n, m, p):
     rng = np.random.default_rng(seed)
     return [0.3 * rng.normal(size=(T, B) + s) for s in ((m, n), (m, m),
                                                         (n, p))]
+
+
+def _serial_vjp(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar):
+    """Per-step oracle of K2: one time loop runs both adjoint carries and
+    adds every cotangent as it goes (K2's arithmetic before it was split
+    into recompute, carries and chunked sums)."""
+    At, Bt, Ft = mT(A), mT(Bm), mT(F)
+    T = S_st.shape[0]
+    zero = torch.zeros_like
+    Sb, Pb = zero(S_st[0]), zero(P_st[0])
+    aA, aB, aQ, aR = zero(A), zero(Bm), zero(S_st[0]), zero(R)
+    aF, aV, aW = zero(F), zero(VV), zero(WW)
+    for i in range(T):
+        S = S_st[i]
+        SB = S @ Bm
+        SA = S @ A
+        H = R + Bt @ SB
+        G = Bt @ SA
+        Hinv = kg._sym_inv_det(H)[0]
+        L = -(Hinv @ G)
+        HL = H @ L
+        Sbt = mT(Sb)
+        LSb = L @ Sb
+        Lb = Lbar[i] + (HL @ Sbt + (G @ Sbt + (G @ Sb + H @ LSb)))
+        Hb = Hbar[i] + L @ (Sb @ mT(L))
+        HinvLb = Hinv @ Lb
+        Hb = Hb + HinvLb @ (mT(G) @ Hinv)
+        Gbar = (LSb + L @ Sbt) - HinvLb
+        aR = aR + Hb
+        aQ = aQ + Sb
+        SBbar = Bm @ Hb
+        SAbar = A @ Sb + Bm @ Gbar
+        aA = aA + (SA @ Sbt + S @ SAbar)
+        aB = aB + (SA @ mT(Gbar) + (SB @ mT(Hb) + S @ SBbar))
+        Sb = SBbar @ Bt + SAbar @ At
+        Pb = 0.5 * (Pb + mT(Pb))
+        P = P_st[T - 1 - i]
+        Pp = A @ (P @ At) + VV
+        PFt = Pp @ Ft
+        Gki = kg._sym_inv_det(F @ PFt + WW)[0]
+        K = PFt @ Gki
+        Kb = Kbar[T - 1 - i] - Pb @ PFt
+        KbGki = Kb @ Gki
+        PFtb = -(mT(Pb) @ K) + KbGki
+        Gkbar = -(Gki @ (mT(PFt) @ KbGki))
+        aW = aW + Gkbar
+        aF = aF + Gkbar @ mT(PFt)
+        PFtb = PFtb + Ft @ Gkbar
+        aF = aF + mT(PFtb) @ Pp
+        Ppbar = Pb + PFtb @ F
+        aV = aV + Ppbar
+        aA = aA + (Ppbar + mT(Ppbar)) @ (A @ P)
+        Pb = At @ (Ppbar @ A)
+    return aA, aB, aQ, aR, Sb, aF, aV, aW, Pb
+
+
+def _vjp_inputs(f, T, dtype=torch.float64, seed=5):
+    """K2's inputs for the numpy spec fields ``f``: the fields, the plain
+    K1's stores and random cotangents."""
+    t = {k: torch.tensor(v, dtype=dtype) for k, v in f.items()}
+    VV, WW = t["V"] @ mT(t["V"]), t["W"] @ mT(t["W"])
+    out = kg._gains_reference(t["A"], t["B"], t["Q"], t["R"], t["Qf"], t["F"],
+                              VV, WW, VV, T, stores=True)
+    B, n, m, p = t["A"].shape[0], t["A"].shape[-1], t["B"].shape[-1], \
+        t["F"].shape[-2]
+    cots = [torch.tensor(x, dtype=dtype)
+            for x in _cotangents(seed, T, B, n, m, p)]
+    return (t["A"], t["B"], t["R"], t["F"], VV, WW, *out[3:], *cots)
+
+
+VJP_OUTPUTS = ("A", "B", "Q", "R", "Qf", "F", "VV", "WW", "Sigma0")
 
 
 @pytest.fixture
@@ -160,6 +234,40 @@ def test_kalman_adjoint_step_needs_the_projection():
     assert radius(project=True) < 1.0
 
 
+@pytest.mark.parametrize("T", [1, kg.CHUNK - 1, kg.CHUNK, kg.CHUNK + 1,
+                               2 * kg.CHUNK + 5, 37])
+@pytest.mark.parametrize("n,m,p", sorted(kg.INSTANCES))
+def test_three_pass_adjoint_matches_serial_oracle(n, m, p, T):
+    """The plain K2 in the kernel's parts (recompute over all steps, the
+    two carries alone, chunked sums) gives the serial loop's cotangents,
+    float64; T = 1, a chunk less one, a chunk, a chunk and one, a ragged
+    third chunk and a prime T."""
+    ins = _vjp_inputs(_random_spec(11 + T, n=n, m=m, p=p), T)
+    got = kg.fused_gains_vjp_reference(*ins)
+    want = _serial_vjp(*ins)
+    for name, a, b in zip(VJP_OUTPUTS, got, want):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-10,
+                                   atol=1e-10 * float(b.abs().max()), msg=name)
+
+
+@pytest.mark.parametrize("T", [1, kg.CHUNK, kg.CHUNK + 1, 100])
+def test_chunk_sum_order(T):
+    """The plain chunk sum equals torch.sum in float64, and folds a chunk's
+    lanes by halving before the chunks are added in turn."""
+    rng = np.random.default_rng(T)
+    x = torch.tensor(rng.normal(size=(T, 3, 2, 2)))
+    torch.testing.assert_close(kg._chunk_sum(x), x.sum(0), rtol=1e-14,
+                               atol=1e-14 * float(x.abs().max()))
+    if T >= kg.CHUNK:
+        lanes = torch.zeros(T, dtype=torch.float64)
+        lanes[0], lanes[1], lanes[17] = 1.0, 2.0 ** 60, -(2.0 ** 60)
+        # the tree adds x_1 + x_17 before x_0 meets them: x_0 survives; a
+        # sum in index order loses it
+        assert float(kg._chunk_sum(lanes)) == 1.0
+        assert float((lanes[0] + lanes[1]) + lanes[17]) == 0.0
+
+
 def test_function_on_cpu_launches_nothing():
     f = _random_spec(9)
     spec, leaves = _torch_spec(f, torch.float32, requires_grad=True)
@@ -185,11 +293,25 @@ def _sweep_spec(B, device):
 
 @pytest.mark.cuda
 def test_adjoint_kernel_matches_reference_on_card(cuda):
+    """K1's stores and K2 against their plain versions: the potential's
+    shape, 2,048 specs at a prime T, and each instance at a ragged T (two
+    chunks and one step); two K2 launches give the same bits."""
+    cases = []
     for B, T in ((24, 1008), (2048, 719)):
         spec = _sweep_spec(B, cuda)
         VV, WW = spec.V @ mT(spec.V), spec.W @ mT(spec.W)
-        ins = [x.expand((B,) + x.shape[-2:]).contiguous() for x in (
-            spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F, VV, WW, VV)]
+        cases.append((spec, [x.expand((B,) + x.shape[-2:]).contiguous()
+                             for x in (spec.A, spec.B, spec.Q, spec.R,
+                                       spec.Qf, spec.F, VV, WW, VV)], T))
+    for n, m, p in sorted(kg.INSTANCES):
+        spec = _torch_spec(_random_spec(4, B=5, n=n, m=m, p=p),
+                           torch.float32)[0]
+        spec = spec._replace(**{k: getattr(spec, k).to(cuda)
+                                for k in FIELDS})
+        VV, WW = spec.V @ mT(spec.V), spec.W @ mT(spec.W)
+        cases.append((spec, [spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F,
+                             VV, WW, VV], 2 * kg.CHUNK + 1))
+    for spec, ins, T in cases:
         out = kg.gains_fwd(*ins, T, stores=True)
         ref = kg.fused_gains_reference(spec, ins[-1], T, stores=True)
         for a, b in zip(out, ref):
@@ -198,10 +320,12 @@ def test_adjoint_kernel_matches_reference_on_card(cuda):
         cots = [0.3 * torch.randn(x.shape, generator=g, device=cuda)
                 for x in out[:3]]
         A, Bm, _, R, _, F, VV, WW, _ = ins
-        got = kg.fused_gains_vjp(A, Bm, R, F, VV, WW, *out[3:], *cots)
-        want = kg.fused_gains_vjp_reference(A, Bm, R, F, VV, WW, *out[3:],
-                                            *cots)
+        args = (A, Bm, R, F, VV, WW, *out[3:], *cots)
+        got = kg.fused_gains_vjp(*args)
+        again = kg.fused_gains_vjp(*args)
+        want = kg.fused_gains_vjp_reference(*args)
         torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
         # a cotangent summed over T steps that cancels to a small value
         # keeps its terms' rounding, which differs between the kernel's
         # fused multiply-adds and cuBLAS: an absolute allowance of 1e-5 of

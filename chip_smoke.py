@@ -61,7 +61,25 @@ beside it.  Phases, each fatal on failure:
     clock and power draw sampled while it repeats; K5 and K6 at P=24 and
     at P=1, at one block a set (C=1) and at the wrapper's cluster size,
     timed in turns, with the SMs they use, TFLOP/s, the whole card's bound
-    and the bound on those SMs.
+    and the bound on those SMs;
+13. the potential's value+grad replayed from a CUDA graph
+    (``infer.capture.GraphedValueAndGrad``) on two bounded-actor
+    potentials: ``scripts/recover.py``'s (``lifted_model``, parameters from
+    ``sample_from_prior``, 20 simulated trials at T=720, 4 chains) and
+    phase 7's fit; one eager value+grad of each under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no copy from host memory,
+    no synchronization inside the potential); the replay against eager at
+    three points; capture and instantiate seconds, replay and eager times,
+    the device's busy share of a replay and the kernels it runs (K1-K4,
+    ``torch.profiler``);
+14. the NUTS recovery at that shape through ``infer(..., method="nuts")``
+    (``max_depth=10``, 4 chains, warmup and samples sized to the time
+    limit), every leapfrog a replay: the counters zeroed just before and
+    read just after (K1-K4 launched by the warm-up and the capture; the
+    replays do not count), transitions/s, leapfrogs/s, ms per leapfrog,
+    ESS/s, divergences and split R-hat; each true parameter within 4
+    posterior standard deviations of the posterior mean; and one profiled
+    transition: its host time per leapfrog against a replay's.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -112,6 +130,10 @@ DELAY_SHARED = ["c", "subj_noise", "subj_vel_noise", "sigma_cursor",
 # held to DELAY_GRAD_RTOL of itself (the gradient path's rtol) plus
 # DELAY_GRAD_SCALED of the largest (measured on an H100: 5.1e-4 and 9.9e-7)
 DELAY_POT_RTOL, DELAY_GRAD_RTOL, DELAY_GRAD_SCALED = 2e-3, 5e-3, 1e-5
+# scripts/recover.py's recovery: its seed, trials, horizon and chains; the
+# run's warmup and samples sized to the time limit
+RECOVER_SEED, RECOVER_TRIALS, RECOVER_T = 7432, 20, 720
+RECOVER_WARMUP, RECOVER_SAMPLES, RECOVER_SDS = 300, 300, 4.0
 EDGE_DELAY, EDGE_T, EDGE_SETS = 11, 40, 2  # j = 2 * (2 + 3) * 12 = 120, d = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
@@ -412,11 +434,46 @@ def within(a, b, rtol, atol):
     return bool(torch.all((a - b).abs() <= atol + rtol * b.abs()))
 
 
+def without_sync(fn):
+    """Calls ``fn`` with ``torch.cuda.set_sync_debug_mode("error")``: a copy
+    from host memory or a host synchronization inside it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def host_ms(fn, calls):
+    """Median host-clock time (ms) of ``calls`` calls of ``fn``, each ended
+    by a synchronization."""
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def kernel_counts(fn, names):
+    """How many kernels named in ``names`` one call of ``fn`` runs on the
+    device (``torch.profiler``)."""
+    spans = device_spans(fn)[1]
+    return {k: sum(k in n for _, _, n in spans) for k in names}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from lqg_tpu_torch.infer import shared_params_lqg_model
+    from lqg_tpu_torch.infer import (ess, infer, lifted_model,
+                                     sample_from_prior,
+                                     shared_params_lqg_model, split_rhat)
+    from lqg_tpu_torch.infer.capture import (GraphedValueAndGrad,
+                                             eager_value_and_grad)
+    from lqg_tpu_torch.infer.hmc import draw_nuts, nuts_step
     from lqg_tpu_torch.models import (BoundedActor, DelayedSubjectiveActor,
                                       SubjectiveActor, TemporalDelayModel)
     from lqg_tpu_torch.models.basic import tracking_spec
@@ -982,6 +1039,10 @@ def main() -> int:
     def delay_grad_path():
         value_and_grad(dpm, ud)
 
+    without_sync(delay_grad_path)
+    log("gradient delay path: one value+grad under set_sync_debug_mode("
+        "'error'): no copy from host memory, no host synchronization")
+
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1221,6 +1282,136 @@ def main() -> int:
     by_shape = {k: {f"P={P_} C={C}": v for (n_, P_, C), v in
                     blocked_ms.items() if n_ == k}
                 for k in ("K5 ll_blocked_fwd", "K6 ll_blocked_bwd")}
+
+    # 13. the potential's value+grad replayed from a CUDA graph:
+    # scripts/recover.py's shape and phase 7's fit
+    truth = sample_from_prior(BoundedActor, RECOVER_SEED, device=dev)
+    x_rec = BoundedActor(T=RECOVER_T, device=dev, **truth).simulate(
+        torch.Generator(device=dev).manual_seed(RECOVER_SEED),
+        n=RECOVER_TRIALS)
+    replay_ms = {}
+    for what, pm in (
+            (f"recover: lifted_model, {RECOVER_TRIALS} trials at "
+             f"T={RECOVER_T}", lifted_model(x_rec, BoundedActor)),
+            (f"fit: {CONDITIONS} conditions x {LL_TRIALS} trials at "
+             f"T={T_FIT}", shared_params_lqg_model(x_fit, BoundedActor,
+                                                  shared_params=SHARED))):
+        u0 = pm.init_unconstrained()
+        u = u0 + 0.1 * torch.randn((CHAINS,) + u0.shape, generator=g2,
+                                   device=dev)
+        eager = eager_value_and_grad(pm.potential)
+        eager(u)
+        without_sync(lambda: eager(u))
+        t0 = time.perf_counter()
+        graphed = GraphedValueAndGrad(pm.potential, u)
+        built_s = time.perf_counter() - t0
+        errs = []
+        for k in range(3):
+            uk = u + 0.05 * k * torch.randn(u.shape, generator=g2, device=dev)
+            (pe_g, grad_g), (pe_e, grad_e) = graphed(uk), eager(uk)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(pe_g).all()
+                         and torch.isfinite(grad_g).all()),
+                    f"graph replay, {what}: values not finite")
+            require(within(pe_g, pe_e, POT_RTOL, 0.0)
+                    and within(grad_g, grad_e, POT_GRAD_RTOL,
+                               1e-6 * float(grad_e.abs().max())),
+                    f"graph replay vs eager, {what}, point {k}")
+            errs.append((float(((pe_g - pe_e) / pe_e).abs().max()),
+                         float(((grad_g - grad_e).abs()
+                                / grad_e.abs()).max())))
+
+        eager_wall = host_ms(lambda: eager(u), 7)
+        replay_wall = host_ms(lambda: graphed(u), 20)
+        replay_events = cuda_ms(lambda: graphed(u))
+        replay_ms[what.split(":")[0]] = replay_events
+        wall, busy, n_events, named = profile_ms(lambda: graphed(u), names)
+        seen = kernel_counts(lambda: graphed(u), names)
+        require(all(v >= 1 for v in seen.values()),
+                f"graph replay, {what}: kernels per replay {seen}")
+        log(f"[{card}] graph, {what}, {CHAINS} chains, D={u.shape[-1]}: "
+            f"capture {graphed.capture_s:.3f} s, instantiate "
+            f"{graphed.instantiate_s:.3f} s (with the warm-up {built_s:.3f} "
+            f"s); replay {replay_wall:.3f} ms host wall (median of 20), "
+            f"{replay_events:.4f} ms CUDA events; eager {eager_wall:.3f} ms "
+            f"(median of 7); a replay under torch.profiler: wall "
+            f"{wall:.3f} ms, device busy {busy:.3f} ms "
+            f"({100 * busy / wall:.2f}%) over {n_events} events, "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in named.items())
+            + f"; kernels per replay {seen}; replay vs eager at 3 points: "
+            f"value rel err max {max(e[0] for e in errs):.3e}, gradient "
+            f"{max(e[1] for e in errs):.3e}; eager value+grad under "
+            f"set_sync_debug_mode('error'): no copy, no synchronization")
+        del graphed, eager, pm
+    torch.cuda.empty_cache()
+
+    # 14. the NUTS recovery, through the entry point a user calls
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mcmc = infer(x_rec, num_samples=RECOVER_SAMPLES,
+                 num_warmup=RECOVER_WARMUP, model=BoundedActor,
+                 num_chains=CHAINS, seed=RECOVER_SEED, progress_bar=False)
+    torch.cuda.synchronize()
+    nuts_s = time.perf_counter() - t0
+    nuts_launches = {k: fn.launches for k, fn in zip(names, counters)}
+    vg = mcmc.value_and_grad
+    require(isinstance(vg, GraphedValueAndGrad) and vg.replays > 0,
+            "NUTS: the leapfrogs did not replay the captured value+grad")
+    require(all(v > 0 for v in nuts_launches.values()),
+            f"NUTS bypassed a kernel: {nuts_launches}")
+    samples = mcmc.get_samples(group_by_chain=True)
+    extra = mcmc.get_extra_fields()
+    rows, far = [], []
+    for name, v in samples.items():
+        v = v.double().numpy()
+        require(bool(np.isfinite(v).all()), f"NUTS: {name} not finite")
+        mean, sd = float(v.mean()), float(v.std(ddof=1))
+        n_eff, rhat = ess(v), split_rhat(v)
+        true = float(truth[name])
+        rows.append(f"{name} true {true:.5g} posterior {mean:.5g} +- "
+                    f"{sd:.3g} (ESS {n_eff:.1f}, {n_eff / nuts_s:.3f}/s; "
+                    f"R-hat {rhat:.4f})")
+        require(rhat < 1.1, f"NUTS: {name} R-hat {rhat}")
+        if abs(mean - true) > RECOVER_SDS * sd:
+            far.append(name)
+    transitions = RECOVER_WARMUP + RECOVER_SAMPLES
+    depth = extra["tree_depth"]
+    log(f"[{card}] NUTS recovery, BoundedActor, {RECOVER_TRIALS} trials at "
+        f"T={RECOVER_T}, {CHAINS} chains, max_depth=10, {RECOVER_WARMUP} "
+        f"warmup + {RECOVER_SAMPLES} samples: {nuts_s:.2f} s with the "
+        f"capture; {transitions / nuts_s:.3f} transitions/s "
+        f"({CHAINS * transitions / nuts_s:.3f} chain draws/s); "
+        f"{vg.replays} leapfrogs (replays), {vg.replays / nuts_s:.1f}/s, "
+        f"{nuts_s * 1e3 / vg.replays:.3f} ms each; divergences "
+        f"{mcmc.divergences}; kept draws' tree depth mean "
+        f"{float(depth.mean()):.2f}, max {int(depth.max())}; step size "
+        f"{[round(float(v), 4) for v in extra['step_size']]}; launches "
+        f"(warm-up and capture) {nuts_launches}")
+    for row in rows:
+        log(f"  {row}")
+    require(not far, f"NUTS: true {far} beyond {RECOVER_SDS} posterior sd")
+
+    # one more transition from the last draws, profiled: its host time per
+    # leapfrog against a replay's
+    z_last = mcmc._samples_u[:, -1].to(dev)
+    pe_last, grad_last = vg(z_last)
+    step_draws = draw_nuts(torch.Generator(device=dev).manual_seed(1),
+                           CHAINS, z_last.shape[-1], 10, z_last.dtype)
+    before = vg.replays
+
+    def transition():
+        nuts_step(vg, step_draws, z_last, pe_last, grad_last,
+                  extra["step_size"], extra["inv_mass"], max_depth=10)
+
+    wall, busy, n_events, _ = profile_ms(transition, ())
+    leaves = vg.replays - before
+    log(f"[{card}] one NUTS transition under torch.profiler: {leaves} "
+        f"leapfrogs, wall {wall:.3f} ms ({wall / leaves:.3f} ms a leapfrog "
+        f"against {replay_ms['recover']:.4f} ms a replay alone, CUDA "
+        f"events, phase 13), device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.2f}%) over {n_events} events")
 
     kernels = [
         {"name": "gains_fwd", "route": "cuda",

@@ -13,6 +13,8 @@ the CPU on its own.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -44,5 +46,21 @@ def as_tensors(values, device=None, dtype=torch.float32):
     if device is None:
         device = next((v.device for v in values if torch.is_tensor(v)), None)
     device = resolve_device(device)
-    return [torch.as_tensor(v, dtype=dtype, device=device)
-            for v in values], device
+    return [_as_tensor(v, dtype, device) for v in values], device
+
+
+def _as_tensor(value, dtype, device) -> torch.Tensor:
+    """A number goes to the device through a fill kernel: a copy from host
+    memory would wait for the card, and a CUDA graph cannot capture it."""
+    if isinstance(value, (int, float)):
+        return torch.full((), value, dtype=dtype, device=device)
+    return torch.as_tensor(value, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def constant(rows: tuple, dtype, device) -> torch.Tensor:
+    """The constant ``rows`` (nested tuples: a matrix's rows, or an index
+    vector), copied to the device once per ``(rows, dtype, device)`` and
+    shared: callers only read it, so that building a model makes no copy
+    from host memory after the first."""
+    return torch.tensor(rows, dtype=dtype, device=device)

@@ -1,0 +1,100 @@
+"""The potential's value and gradient as NUTS calls them: the port's
+counterpart of JAX's ``jit(value_and_grad(potential))``.
+
+JAX compiles a whole NUTS transition into one program
+(``lqg_tpu/infer/mcmc.py:1-25``).  Eager PyTorch would instead spend host
+time on every small op of the potential and of autograd at each leapfrog
+(~550 of them for the bounded actor's hierarchical potential).  So on the
+card the potential of all chains, ``potential(u)`` and one
+``torch.autograd.grad``, is captured once into a CUDA graph with static
+buffers ``u (C, D)``, ``pe (C,)`` and ``grad (C, D)``, and each leapfrog
+copies its position into ``u`` and replays the graph.  On the card that is
+the only path: a capture or replay that fails raises.  On the CPU the same
+call runs eagerly.
+
+The graph holds the kernels' launches (K1-K4 on the bounded actor's fused
+route) as nodes, so a replay does not advance the wrappers' launch counters:
+count a replay's kernels with ``torch.profiler``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+
+def eager_value_and_grad(potential: Callable) -> Callable:
+    """``z (C, D) -> (pe (C,), grad (C, D))`` by autograd, each call."""
+
+    def value_and_grad(z):
+        with torch.enable_grad():
+            u = z.detach().requires_grad_()
+            pe = potential(u)
+            (grad,) = torch.autograd.grad(pe.sum(), u)
+        return pe.detach(), grad
+
+    return value_and_grad
+
+
+class GraphedValueAndGrad:
+    """The value and gradient of ``potential`` for ``C`` chains, replayed
+    from one CUDA graph.
+
+    Construction warms the potential up on a side stream (building and
+    loading the kernels, setting their attributes, filling the caches of
+    the models' constants and of the launch plans), then captures one
+    ``potential(u)`` + ``autograd.grad`` and instantiates the graph.
+    ``capture_s`` and ``instantiate_s`` keep the host time of the two;
+    ``replays`` counts the calls.
+
+    Args:
+        potential: ``u (C, D) -> (C,)`` on the card.
+        u0: ``(C, D)``, a point where the potential is finite, used for the
+            warm-up and the capture.
+    """
+
+    def __init__(self, potential: Callable, u0: torch.Tensor):
+        if u0.device.type != "cuda":
+            raise ValueError("a CUDA graph needs a tensor on the card")
+        self.u = u0.detach().clone()
+        eager = eager_value_and_grad(potential)
+        side = torch.cuda.Stream(device=u0.device)
+        side.wait_stream(torch.cuda.current_stream(u0.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                eager(self.u)
+        torch.cuda.current_stream(u0.device).wait_stream(side)
+        torch.cuda.synchronize(u0.device)
+
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with torch.enable_grad(), torch.cuda.graph(self.graph):
+            u = self.u.detach().requires_grad_()
+            pe = potential(u)
+            (grad,) = torch.autograd.grad(pe.sum(), u)
+        self.capture_s = time.perf_counter() - t0
+        self.pe, self.grad = pe.detach(), grad
+        t0 = time.perf_counter()
+        self.graph.instantiate()
+        torch.cuda.synchronize(u0.device)
+        self.instantiate_s = time.perf_counter() - t0
+        self.replays = 0
+
+    def __call__(self, z: torch.Tensor):
+        self.u.copy_(z)
+        self.graph.replay()
+        self.replays += 1
+        # the next replay overwrites the static outputs
+        return self.pe.clone(), self.grad.clone()
+
+
+def value_and_grad_fn(potential: Callable, u0: torch.Tensor) -> Callable:
+    """The value and gradient NUTS calls for chains at ``u0 (C, D)``: a
+    replayed CUDA graph on the card, eager autograd on the CPU."""
+    if u0.device.type == "cuda":
+        return GraphedValueAndGrad(potential, u0)
+    if u0.device.type != "cpu":
+        raise ValueError(f"unsupported device {u0.device}")
+    return eager_value_and_grad(potential)

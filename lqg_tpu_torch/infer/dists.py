@@ -137,8 +137,11 @@ class Uniform(Distribution):
     high: object = 1.0
 
     def log_prob(self, value):
-        lp = torch.as_tensor(-_log(self.high - self.low), dtype=value.dtype,
-                             device=value.device)
+        lp = -_log(self.high - self.low)
+        like = dict(dtype=value.dtype, device=value.device)
+        # a fill kernel for a number: no copy from host memory
+        lp = lp.to(**like) if torch.is_tensor(lp) else torch.full((), lp,
+                                                                  **like)
         inside = (value >= self.low) & (value <= self.high)
         return torch.where(inside, lp, -math.inf)
 

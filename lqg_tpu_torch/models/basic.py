@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from lqg_tpu_torch.config import as_tensors
+from lqg_tpu_torch.config import as_tensors, constant
 from lqg_tpu_torch.system import System
 from lqg_tpu_torch.utils import stationary_spec
 
@@ -52,9 +52,9 @@ def tracking_spec(dim, process_noise, action_variability, sigma_target,
     ex = lambda M: M.expand(batch + M.shape[-2:])
     A = ex(torch.eye(d, **kw))
     B = ex(dt[..., None, None] * _per_dim_blockdiag(
-        torch.tensor([[0.0], [1.0]], **kw), dim))
+        constant(((0.0,), (1.0,)), **kw), dim))
     F = ex(torch.eye(d, **kw))
-    Q = ex(_per_dim_blockdiag(torch.tensor([[1.0, -1.0], [-1.0, 1.0]], **kw),
+    Q = ex(_per_dim_blockdiag(constant(((1.0, -1.0), (-1.0, 1.0)), **kw),
                               dim))
     R = ex(torch.eye(dim, **kw) * c[..., None, None])
     return stationary_spec(A=A, B=B, F=F, V=ex(_diag_tile((pn, av), dim)),
@@ -120,12 +120,12 @@ class RelativeObservationBoundedActor(System):
         d = 2 * dim
         A = ex(torch.eye(d, **kw))
         B = ex(dt[..., None, None] * _per_dim_blockdiag(
-            torch.tensor([[0.0], [1.0]], **kw), dim))
-        F = ex(_per_dim_blockdiag(torch.tensor([[1.0, -1.0]], **kw), dim))
+            constant(((0.0,), (1.0,)), **kw), dim))
+        F = ex(_per_dim_blockdiag(constant(((1.0, -1.0),), **kw), dim))
         V = ex(_diag_tile((pn, av), dim))
         W = ex(_diag_tile((s,), dim))
         Q = ex(_per_dim_blockdiag(
-            torch.tensor([[1.0, -1.0], [-1.0, 1.0]], **kw), dim))
+            constant(((1.0, -1.0), (-1.0, 1.0)), **kw), dim))
         R = ex(torch.eye(dim, **kw) * c[..., None, None])
         spec = stationary_spec(A=A, B=B, F=F, V=V, W=W, Q=Q, R=R)
         super().__init__(actor=spec, dynamics=spec, horizon=T)

@@ -18,7 +18,7 @@ from itertools import chain
 
 import torch
 
-from lqg_tpu_torch.config import as_tensors
+from lqg_tpu_torch.config import as_tensors, constant
 from lqg_tpu_torch.system import System
 from lqg_tpu_torch.utils import stationary_spec
 from lqg_tpu_torch.models.basic import (_common_batch, _diag_tile,
@@ -50,12 +50,12 @@ class SubjectiveActor(System):
         batch = _common_batch(pn, c, av, sn, svn, st, sc, dt)
         kw = dict(dtype=dtype, device=device)
         ex = lambda M: M.expand(batch + M.shape[-2:])
-        const = lambda rows: torch.tensor(rows, **kw)
+        const = lambda rows: constant(rows, **kw)
         dt = dt[..., None, None]
 
         # true dynamics: 2 states per dim, random-walk target
         A = ex(torch.eye(2 * dim, **kw))
-        B = ex(dt * _per_dim_blockdiag(const([[0.0], [1.0]]), dim))
+        B = ex(dt * _per_dim_blockdiag(const(((0.0,), (1.0,))), dim))
         F = ex(torch.eye(2 * dim, **kw))
         V = ex(_diag_tile((pn, av), dim))
         W = ex(_diag_tile((st, sc), dim))
@@ -66,22 +66,24 @@ class SubjectiveActor(System):
         # actor's internal model: 3 states per dim (adds target velocity)
         A_a = (_per_dim_blockdiag(torch.eye(3, **kw), dim)
                + dt * _per_dim_blockdiag(
-                   const([[0.0, 0.0, 1.0], [0.0] * 3, [0.0] * 3]), dim))
-        B_a = dt * _per_dim_blockdiag(const([[0.0], [1.0], [0.0]]), dim)
+                   const(((0.0, 0.0, 1.0), (0.0,) * 3, (0.0,) * 3)), dim))
+        B_a = dt * _per_dim_blockdiag(const(((0.0,), (1.0,), (0.0,))), dim)
         F_a = _per_dim_blockdiag(
-            const([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]), dim)
+            const(((1.0, 0.0, 0.0), (0.0, 1.0, 0.0))), dim)
         V_a = _diag_tile((sn, av, svn), dim)
         Q_a = _per_dim_blockdiag(
-            const([[1.0, -1.0, 0.0], [-1.0, 1.0, 0.0], [0.0, 0.0, 0.0]]), dim)
+            const(((1.0, -1.0, 0.0), (-1.0, 1.0, 0.0), (0.0, 0.0, 0.0))), dim)
         R_a = torch.eye(dim, **kw) * c[..., None, None]
 
         # permute the actor state: observed dims first
-        dims = swap_dims(3 * dim, dim)
-        A_a = A_a[..., dims, :][..., :, dims]
-        B_a = B_a[..., dims, :]
-        V_a = V_a[..., dims, :]
-        F_a = F_a[..., :, dims]
-        Q_a = Q_a[..., dims, :][..., :, dims]
+        dims = constant(tuple(swap_dims(3 * dim, dim)), torch.long, device)
+        rows = lambda M: M.index_select(-2, dims)
+        cols = lambda M: M.index_select(-1, dims)
+        A_a = cols(rows(A_a))
+        B_a = rows(B_a)
+        V_a = rows(V_a)
+        F_a = cols(F_a)
+        Q_a = cols(rows(Q_a))
 
         act = stationary_spec(A=ex(A_a), B=ex(B_a), F=ex(F_a), V=ex(V_a), W=W,
                               Q=ex(Q_a), R=ex(R_a))

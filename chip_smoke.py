@@ -79,13 +79,37 @@ beside it.  Phases, each fatal on failure:
     replays do not count), transitions/s, leapfrogs/s, ms per leapfrog,
     ESS/s, divergences and split R-hat; each true parameter within 4
     posterior standard deviations of the posterior mean; and one profiled
-    transition: its host time per leapfrog against a replay's.
+    transition: its host time per leapfrog against a replay's;
+15. the rest of the model zoo, ``PointMassBoundedActor``,
+    ``HandMotionModelTrackingTask`` and ``SignalDependentNoiseActor``, and
+    ``RelativeObservationBoundedActor(dim=2)`` for K1/K2 at (4, 2, 2):
+    first whether ``torch.linalg.matrix_exp`` and ``torch.linalg.eigh``
+    synchronize the host (why the port has its own ``expm`` and eigenvalue
+    clip); then for each model the forward path (``T=1000``, 20 trials,
+    positions scored) and the gradient path (6 conditions x 20 trials at
+    T=1008, 4 chains, the mechanical parameters free per chain), each with
+    all counters zeroed just before and read just after (K1-K4 for the point
+    mass, the hand and the relative-observation actor; K3/K4 and no K1 for
+    the signal-dependent actor, whose gains are the multiplicative scans),
+    against the float64 model on the card, warm host
+    wall and device busy share, one eager value+grad under
+    ``set_sync_debug_mode("error")``; the point-mass potential captured in a
+    CUDA graph and replayed against eager at three points;
+16. the zoo's instances against their plain versions: K1 (with stores) and
+    K2 at (4, 1, 3), (5, 1, 2) and (4, 2, 2), each at 24 specs, T=1008 and
+    2,048 specs, T=719, two K2 launches the same bits; K3 (both variants,
+    the stores) and K4 at (8, 2), (8, 4), (10, 2) and (10, 4), 24 sets x 20
+    simulated trials at T=1008, two K4 launches the same bits; each
+    instance's time beside its bound (and the plain version's at 24 sets),
+    added to the kernels line under ``ms_by_shape`` and ``zoo_shapes``.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import inspect
 import json
+import math
 import os
 import re
 import statistics
@@ -135,6 +159,40 @@ DELAY_POT_RTOL, DELAY_GRAD_RTOL, DELAY_GRAD_SCALED = 2e-3, 5e-3, 1e-5
 RECOVER_SEED, RECOVER_TRIALS, RECOVER_T = 7432, 20, 720
 RECOVER_WARMUP, RECOVER_SAMPLES, RECOVER_SDS = 300, 300, 4.0
 EDGE_DELAY, EDGE_T, EDGE_SETS = 11, 40, 2  # j = 2 * (2 + 3) * 12 = 120, d = 4
+# phases 15-16, the rest of the zoo: each path's model class, its keyword
+# arguments, the parameter that differs between conditions, and the shared
+# parameters of its gradient path; the mechanical parameters, which the
+# default prior lacks, get log-normal priors (scale 0.5) centred on the
+# models' defaults, so that they are free per chain.  The relative-
+# observation actor at dim=2 runs K1 and K2 at (4, 2, 2), the instance at
+# which K1 projects its Riccati carry and K2 applies that projection's
+# adjoint.
+ZOO_PATHS = {
+    "PointMassBoundedActor": (
+        "PointMassBoundedActor", {}, "sigma_target",
+        ["action_cost", "action_variability", "sigma_cursor", "damping", "m",
+         "tau"]),
+    "HandMotionModelTrackingTask": (
+        "HandMotionModelTrackingTask", {}, "sigma_target",
+        ["action_cost", "action_variability", "sigma_cursor", "m", "tau"]),
+    "SignalDependentNoiseActor": (
+        "SignalDependentNoiseActor", {}, "sigma_target",
+        ["action_cost", "action_variability", "sigma_cursor",
+         "signal_dep_noise"]),
+    "RelativeObservationBoundedActor(dim=2)": (
+        "RelativeObservationBoundedActor", {"dim": 2}, "sigma",
+        ["action_cost", "action_variability"]),
+}
+ZOO_MECHANICAL = ("damping", "m", "tau")
+# K1 at the zoo's instances, as tests/test_pallas.py:60 holds the Pallas
+# kernel at n = 3-4 (PointMass's |L| reaches ~70)
+ZOO_GAINS_ATOL = 5e-4
+# K3's stores at the zoo's instances: each entry is also allowed
+# K3_STORE_SCALE x the largest |plain| of its row, one state's covariances
+# or means over every set, step and trial (the point mass's hidden-state
+# means reach ~1e2-1e4 and keep float32 rounding of that scale, while its
+# activation's stay near 1); phase 16 prints each store's worst row
+K3_STORE_SCALE = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -306,17 +364,18 @@ def mm(r, k, c):
 INV_OPS = {1: 2, 2: 11, 3: 34, 4: 102}
 
 
-def gains_work(B, n, m, p):
-    """(bytes, operations) of K1 for B particles over T steps: inputs read
-    once, outputs written once."""
+def gains_work(B, n, m, p, steps=T):
+    """(bytes, operations) of K1 for B particles over ``steps`` steps:
+    inputs read once, outputs written once."""
     riccati = (mm(n, n, m) + mm(n, n, n) + mm(m, n, m) + m * m + mm(m, n, n)
                + INV_OPS[m] + mm(m, m, n) + m * n + mm(m, m, n) + mm(n, n, n)
-               + 3 * mm(n, m, n) + 3 * n * n)
+               + 3 * mm(n, m, n) + 3 * n * n
+               + (2 * n * n if m > 1 else 0))  # sym(S) at m > 1
     kalman = (2 * mm(n, n, n) + n * n + mm(n, n, p) + mm(p, n, p) + p * p
               + INV_OPS[p] + mm(n, p, p) + mm(n, p, n) + n * n)
     inputs = B * (5 * n * n + n * m + m * m + p * n + p * p) * 4
-    outputs = T * B * (m * n + m * m + n * p) * 4
-    return inputs + outputs, T * B * (riccati + kalman)
+    outputs = steps * B * (m * n + m * m + n * p) * 4
+    return inputs + outputs, steps * B * (riccati + kalman)
 
 
 def gains_bwd_work(B, n, m, p, T):
@@ -331,7 +390,8 @@ def gains_bwd_work(B, n, m, p, T):
                + m * m + n * n + mm(n, m, m) + mm(n, n, n) + mm(n, m, n)
                + n * n + 2 * mm(n, n, n) + 2 * n * n + mm(n, n, m)
                + mm(n, m, m) + mm(n, n, m) + 3 * n * m + mm(n, m, n)
-               + mm(n, n, n) + n * n)
+               + mm(n, n, n) + n * n
+               + (2 * n * n if m > 1 else 0))  # sym(Sb) at m > 1
     kalman = (2 * n * n + 2 * mm(n, n, n) + n * n + mm(n, n, p)
               + mm(p, n, p) + p * p + INV_OPS[p] + mm(n, p, p)
               + 2 * mm(n, n, p) + mm(n, p, p) + 3 * n * p + mm(p, n, p)
@@ -434,6 +494,12 @@ def within(a, b, rtol, atol):
     return bool(torch.all((a - b).abs() <= atol + rtol * b.abs()))
 
 
+def row_scale(b):
+    """The largest |b| of each row of a store ``(P, T+1, j, .)``: one
+    state's entries over every set, step and column."""
+    return b.abs().amax(dim=(0, 1, 3), keepdim=True)
+
+
 def without_sync(fn):
     """Calls ``fn`` with ``torch.cuda.set_sync_debug_mode("error")``: a copy
     from host memory or a host synchronization inside it raises."""
@@ -462,6 +528,372 @@ def kernel_counts(fn, names):
     device (``torch.profiler``)."""
     spans = device_spans(fn)[1]
     return {k: sum(k in n for _, _, n in spans) for k in names}
+
+
+def zoo_paths(dev, card, names, all_counters, all_names):
+    """Phase 15: PointMassBoundedActor, HandMotionModelTrackingTask and
+    SignalDependentNoiseActor through the entry points at full width.
+    Returns the launches of each path."""
+    from lqg_tpu_torch import models
+    from lqg_tpu_torch.infer import shared_params_lqg_model
+    from lqg_tpu_torch.infer.capture import (GraphedValueAndGrad,
+                                             eager_value_and_grad)
+    from lqg_tpu_torch.infer.dists import LogNormal
+    from lqg_tpu_torch.infer.priors import DEFAULT_PRIOR
+
+    # the card's own linear algebra waits on the host: why the port has its
+    # own expm and eigenvalue clip
+    M = torch.randn((24, 3, 3), device=dev) / 3.0
+    for what, fn in (("torch.linalg.matrix_exp",
+                      lambda: torch.linalg.matrix_exp(M)),
+                     ("torch.linalg.eigh", lambda: torch.linalg.eigh(M @ M.mT))):
+        fn()
+        try:
+            without_sync(fn)
+            log(f"{what} at (24, 3, 3): no synchronization")
+        except RuntimeError:
+            log(f"{what} at (24, 3, 3): synchronizes the host "
+                f"(set_sync_debug_mode('error') raised)")
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    launches = {}
+    for name, (cls_name, extra, per_cond, shared) in ZOO_PATHS.items():
+        cls = getattr(models, cls_name)
+        dim = extra.get("dim", 1)
+        d = 2 * dim  # target and cursor positions
+        k1 = name != "SignalDependentNoiseActor"  # control noise: the scans
+        # the forward path
+        for fn in all_counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = cls(T=T, device=dev, **extra)
+        x = model.simulate(torch.Generator(device=dev).manual_seed(16),
+                           n=LL_TRIALS)[..., :d]
+        ll = model.log_likelihood(x, method="auto")
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        fwd = {k: fn.launches for k, fn in zip(all_names, all_counters)}
+        log(f"zoo forward path, {name}: simulate(n={LL_TRIALS}) + "
+            f"log_likelihood at T={T} in {fwd_s:.3f} s (first call, host "
+            f"clock); launches {fwd}")
+        require(fwd["ll_fwd"] > 0 and (fwd["gains_fwd"] > 0) == k1
+                and not fwd["ll_blocked_fwd"],
+                f"zoo forward path, {name}: launches {fwd}")
+        require(x.shape == (LL_TRIALS, T + 1, d) and ll.shape == (LL_TRIALS,)
+                and bool(torch.isfinite(x).all() and torch.isfinite(ll).all()),
+                f"zoo forward path, {name}: shapes or values")
+        ll64 = cls(T=T, device=dev, dtype=torch.float64,
+                   **extra).log_likelihood(
+            x.double(), method="scan")
+        err = float((ll.double() - ll64).abs().max())
+        rel = float(((ll.double() - ll64) / ll64).abs().max())
+        log(f"zoo forward path, {name}, vs float64 scan on the card: max abs "
+            f"err {err:.3e}, max rel err {rel:.3e} of |ll| ~ "
+            f"{float(ll64.abs().mean()):.1f} (rtol {LL_RTOL}, atol {LL_ATOL})")
+        require(within(ll.double(), ll64, LL_RTOL, LL_ATOL),
+                f"zoo forward path, {name}, vs float64: {err}")
+
+        def forward():
+            model.log_likelihood(model.simulate(g, n=LL_TRIALS)[..., :d])
+
+        warm = host_ms(forward, 2)
+        wall, busy, n_events, named = profile_ms(forward, names)
+        log(f"[{card}] zoo forward path, {name}: warm host wall {warm:.1f} ms "
+            f"(median of 2); under torch.profiler wall {wall:.1f} ms, device "
+            f"busy {busy:.3f} ms ({100 * busy / wall:.2f}%) over {n_events} "
+            f"events; " + ", ".join(f"{k} {v:.3f} ms"
+                                    for k, v in named.items()))
+
+        # the gradient path: 6 conditions x 20 trials at T=1008, 4 chains
+        x_fit = torch.stack([
+            cls(T=T_FIT, device=dev, **extra,
+                **{per_cond: 3.0 + 5.0 * c}).simulate(
+                g, n=LL_TRIALS)[..., :d] for c in range(CONDITIONS)])
+        defaults = inspect.signature(cls.__init__).parameters
+
+        def priors():
+            out = dict(DEFAULT_PRIOR)
+            for p_ in set(shared) & set(ZOO_MECHANICAL):
+                out[p_] = LogNormal(math.log(defaults[p_].default), 0.5)
+            return out
+
+        pm = shared_params_lqg_model(x_fit, cls, shared_params=shared,
+                                     priors=priors(), dim=dim)
+        u0 = pm.init_unconstrained()
+        u = u0 + 0.1 * torch.randn((CHAINS,) + u0.shape, generator=g,
+                                   device=dev)
+        eager = eager_value_and_grad(pm.potential)
+        for fn in all_counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pot, grad = eager(u)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        bwd = {k: fn.launches for k, fn in zip(all_names, all_counters)}
+        launches[name] = {"forward": fwd, "gradient": bwd}
+        log(f"zoo gradient path, {name}: {CHAINS} chains x {CONDITIONS} "
+            f"conditions x {LL_TRIALS} trials at T={T_FIT}, D={u.shape[-1]}: "
+            f"value+grad in {grad_s:.3f} s (first call, host clock); "
+            f"launches {bwd}")
+        want = {"gains_fwd": int(k1), "gains_bwd": int(k1), "ll_fwd": 1,
+                "ll_bwd": 1, "ll_blocked_fwd": 0, "ll_blocked_bwd": 0}
+        require(bwd == want, f"zoo gradient path, {name}: launches {bwd}, "
+                             f"expected {want}")
+        require(pot.shape == (CHAINS,) and grad.shape == u.shape
+                and bool(torch.isfinite(pot).all()
+                         and torch.isfinite(grad).all()),
+                f"zoo gradient path, {name}: shapes or values")
+        pm64 = shared_params_lqg_model(x_fit.double(), cls,
+                                       shared_params=shared,
+                                       priors=priors(), dim=dim)
+        pot64, grad64 = eager_value_and_grad(pm64.potential)(u.double())
+        del pm64
+        pot_err = float(((pot.double() - pot64) / pot64).abs().max())
+        grad_rel = (grad.double() - grad64).abs() / grad64.abs()
+        log(f"zoo gradient path, {name}, vs float64 scan on the card: value "
+            f"rel err {pot_err:.3e} (rtol {POT_RTOL}) of |U| ~ "
+            f"{float(pot64.abs().mean()):.1f}; gradient rel err max "
+            f"{float(grad_rel.max()):.3e}, median "
+            f"{float(grad_rel.median()):.3e} (rtol {POT_GRAD_RTOL}); |grad| "
+            f"from {float(grad64.abs().min()):.4g} to "
+            f"{float(grad64.abs().max()):.4g}")
+        require(within(pot.double(), pot64, POT_RTOL, 0.0),
+                f"zoo gradient path, {name}, value vs float64: {pot_err}")
+        require(within(grad.double(), grad64, POT_GRAD_RTOL, 0.0),
+                f"zoo gradient path, {name}, gradient vs float64: "
+                f"{float(grad_rel.max())}")
+        without_sync(lambda: eager(u))
+        warm = host_ms(lambda: eager(u), 2)
+        wall, busy, n_events, named = profile_ms(lambda: eager(u), names)
+        log(f"[{card}] zoo gradient path, {name}: warm host wall {warm:.1f} "
+            f"ms (median of 2); under torch.profiler wall {wall:.1f} ms, "
+            f"device busy {busy:.3f} ms ({100 * busy / wall:.2f}%) over "
+            f"{n_events} events; " + ", ".join(f"{k} {v:.3f} ms"
+                                               for k, v in named.items())
+            + "; one eager value+grad under set_sync_debug_mode('error'): no "
+            "copy from host memory, no host synchronization")
+
+        if name == "PointMassBoundedActor":
+            # the potential, expm and eigenvalue clip included, replayed
+            # from a CUDA graph
+            t0 = time.perf_counter()
+            graphed = GraphedValueAndGrad(pm.potential, u)
+            built_s = time.perf_counter() - t0
+            errs = []
+            for k in range(3):
+                uk = u + 0.05 * k * torch.randn(u.shape, generator=g,
+                                                device=dev)
+                (pe_g, grad_g), (pe_e, grad_e) = graphed(uk), eager(uk)
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(pe_g).all()
+                             and torch.isfinite(grad_g).all())
+                        and within(pe_g, pe_e, POT_RTOL, 0.0)
+                        and within(grad_g, grad_e, POT_GRAD_RTOL,
+                                   1e-6 * float(grad_e.abs().max())),
+                        f"zoo graph replay vs eager, {name}, point {k}")
+                errs.append((float(((pe_g - pe_e) / pe_e).abs().max()),
+                             float(((grad_g - grad_e).abs()
+                                    / grad_e.abs()).max())))
+            replay = cuda_ms(lambda: graphed(u))
+            log(f"[{card}] zoo graph, {name}: capture {graphed.capture_s:.3f} "
+                f"s, instantiate {graphed.instantiate_s:.3f} s (with the "
+                f"warm-up {built_s:.3f} s); replay {replay:.4f} ms (CUDA "
+                f"events) against {warm:.1f} ms eager; replay vs eager at 3 "
+                f"points: value rel err max {max(e[0] for e in errs):.3e}, "
+                f"gradient {max(e[1] for e in errs):.3e}")
+            del graphed
+        del pm, eager, pot, grad, pot64, grad64
+        torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_instances(dev, card):
+    """Phase 16: K1 (with stores) and K2 at (4, 1, 3), (5, 1, 2), (4, 2, 2);
+    K3 (both variants) and K4 at (8, 2), (8, 4), (10, 2), (10, 4), each
+    against its plain version, two K2 and two K4 launches the same bits, and
+    each instance's time and bound.  Returns {kernel: {shape: (ms, bound
+    ms, bound_by, max abs err, plain ms)}}."""
+    from lqg_tpu_torch import models
+    from lqg_tpu_torch.ops.kernels.gains import (
+        fused_gains_reference, fused_gains_vjp, fused_gains_vjp_reference,
+        gains_fwd)
+    from lqg_tpu_torch.ops.kernels.likelihood import (
+        conditioned_log_likelihood_reference, conditioned_log_likelihood_vjp,
+        conditioned_log_likelihood_vjp_reference, ll_fwd)
+    from lqg_tpu_torch.ops.linalg import mT
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    out = {k: {} for k in ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd")}
+
+    def spread(lo, hi, B, log_=False):
+        v = np.logspace(lo, hi, B) if log_ else np.linspace(lo, hi, B)
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    gains_models = {
+        (4, 1, 3): lambda B, T_: models.PointMassBoundedActor(
+            T=T_, action_cost=spread(-2.5, -0.5, B, True),
+            action_variability=spread(5e-4, 5e-3, B),
+            sigma_target=spread(2.0, 40.0, B), device=dev),
+        (5, 1, 2): lambda B, T_: models.HandMotionModelTrackingTask(
+            T=T_, action_cost=spread(-1.0, 1.0, B, True),
+            action_variability=spread(0.1, 1.0, B),
+            sigma_target=spread(2.0, 40.0, B), device=dev),
+        (4, 2, 2): lambda B, T_: models.RelativeObservationBoundedActor(
+            dim=2, T=T_, action_cost=spread(-2.0, 1.0, B, True),
+            action_variability=spread(0.1, 1.0, B),
+            sigma=spread(2.0, 40.0, B), device=dev),
+    }
+    for (n, m, p), make in gains_models.items():
+        for B, T_ in ((CHAINS * CONDITIONS, T_FIT), (2048, 719)):
+            sp = make(B, T_).actor
+            VV = sp.V @ mT(sp.V)
+            ins = [x.expand((B,) + x.shape[-2:]).contiguous() for x in (
+                sp.A, sp.B, sp.Q, sp.R, sp.Qf, sp.F, VV, sp.W @ mT(sp.W), VV)]
+            res = gains_fwd(*ins, T_, stores=True)
+            ref = fused_gains_reference(sp, ins[-1], T_, stores=True)
+            torch.cuda.synchronize()
+            e1 = max(float((a - b).abs().max()) for a, b in zip(res[:3],
+                                                                ref[:3]))
+            st_err = max(float((a - b).abs().max())
+                         for a, b in zip(res[3:], ref[3:]))
+            require(all(bool(torch.isfinite(a).all()) for a in res)
+                    and all(within(a, b, 0.0, ZOO_GAINS_ATOL)
+                            for a, b in zip(res[:3], ref[:3]))
+                    and all(within(a, b, K2_RTOL, K2_ATOL)
+                            for a, b in zip(res[3:], ref[3:])),
+                    f"K1 ({n}, {m}, {p}) B={B} vs plain: {e1}, stores "
+                    f"{st_err}")
+            cots = [0.3 * torch.randn(x.shape, generator=g, device=dev)
+                    for x in res[:3]]
+            A_, Bm_, _, R_, _, F_, VV_, WW_, _ = ins
+            args = (A_, Bm_, R_, F_, VV_, WW_, *res[3:], *cots)
+            got = fused_gains_vjp(*args)
+            again = fused_gains_vjp(*args)
+            want = fused_gains_vjp_reference(*args)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"K2 ({n}, {m}, {p}) B={B}: two launches differ")
+            e2 = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            scaled = max(float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(got, want))
+            require(all(bool(torch.isfinite(a).all()) for a in got)
+                    and all(within(a, b, K2_RTOL,
+                                   K2_ATOL + K2_SCALE * float(b.abs().max()))
+                            for a, b in zip(got, want)),
+                    f"K2 ({n}, {m}, {p}) B={B} vs plain: {e2}")
+            shape = f"({n}, {m}, {p}) B={B} T={T_}"
+            k1_ms = cuda_ms(lambda: gains_fwd(*ins, T_))
+            k2_ms = cuda_ms(lambda: fused_gains_vjp(*args))
+            plain = ((cuda_ms(lambda: fused_gains_reference(sp, ins[-1], T_),
+                              runs=1, launches=1),
+                      cuda_ms(lambda: fused_gains_vjp_reference(*args),
+                              runs=1, launches=1))
+                     if B == CHAINS * CONDITIONS else (None, None))
+            b1 = bound(gains_work(B, n, m, p, T_))
+            b2 = bound(gains_bwd_work(B, n, m, p, T_))
+            out["gains_fwd"][shape] = (k1_ms, *b1, e1, plain[0])
+            out["gains_bwd"][shape] = (k2_ms, *b2, e2, plain[1])
+            log(f"[{card}] K1 {shape}: {k1_ms:.4f} ms (bound {b1[0]:.6f}, "
+                f"{b1[1]}), max abs err vs plain {e1:.3e} (atol "
+                f"{ZOO_GAINS_ATOL}), stores {st_err:.3e}; K2 {k2_ms:.4f} ms "
+                f"(bound {b2[0]:.6f}, {b2[1]}), two launches the same bits, "
+                f"max abs err {e2:.3e}, max err / max|plain| {scaled:.3e}; "
+                f"plain K1 / K2 "
+                + ("not timed" if plain[0] is None else
+                   f"{plain[0]:.2f} / {plain[1]:.2f} ms"))
+            del res, ref, got, again, want, args, ins, sp
+        torch.cuda.empty_cache()
+
+    ll_models = {
+        (8, 2): models.PointMassBoundedActor,
+        (8, 4): lambda **kw: models.BoundedActor(dim=2, **kw),
+        (10, 2): models.HandMotionModelTrackingTask,
+        (10, 4): lambda **kw: models.SubjectiveActor(dim=2, **kw),
+    }
+    P_ = CHAINS * CONDITIONS
+    for (j, d), make in ll_models.items():
+        x = torch.stack([make(T=T_FIT, sigma_target=3.0 + 5.0 * c,
+                              device=dev).simulate(g, n=LL_TRIALS)[..., :d]
+                         for c in range(CONDITIONS)])
+        sets = make(T=T_FIT, device=dev, sigma_target=torch.tensor(
+            [3.0 + 5.0 * c for c in range(CONDITIONS)] * CHAINS, device=dev),
+            action_cost=torch.tensor([0.25 * (1 + k) for k in range(CHAINS)
+                                      for _ in range(CONDITIONS)],
+                                     device=dev))
+        joint = sets._joint()
+        F_, Q_ = (torch.movedim(M_, 0, 1).contiguous()
+                  for M_ in (joint.F, joint.G @ mT(joint.G)))
+        require(F_.shape[-1] == j, f"(j, d) = ({j}, {d}): joint dim "
+                                   f"{F_.shape[-1]}")
+        X = x.repeat(CHAINS, 1, 1, 1)
+        free = ll_fwd(F_, Q_, X)
+        ll, *st = ll_fwd(F_, Q_, X, stores=True)
+        ref, *st_ref = conditioned_log_likelihood_reference(F_, Q_, X,
+                                                            stores=True)
+        torch.cuda.synchronize()
+        e3 = float((ll - ref).abs().max())
+        # each store's worst row (max err / max |plain| of that row) and
+        # its largest error as a share of the error allowed there
+        st_err = [float(((a - b).abs().amax(dim=(0, 1, 3), keepdim=True)
+                         / row_scale(b)).max()) for a, b in zip(st, st_ref)]
+        st_share = [float(((a - b).abs() / (
+            LL_ATOL + LL_RTOL * b.abs() + K3_STORE_SCALE * row_scale(b)))
+            .max()) for a, b in zip(st, st_ref)]
+        require(bool(torch.isfinite(ll).all()) and torch.equal(free, ll)
+                and within(ll, ref, LL_RTOL, LL_ATOL)
+                and max(st_share) <= 1.0,
+                f"K3 ({j}, {d}) vs plain: {e3}, stores' worst rows "
+                f"{st_err}, shares of the allowed error {st_share}")
+        w = torch.randn(ll.shape, generator=g, device=dev)
+        args = (F_, X, w, *st)
+        got = conditioned_log_likelihood_vjp(*args)
+        again = conditioned_log_likelihood_vjp(*args)
+        want = conditioned_log_likelihood_vjp_reference(*args)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"K4 ({j}, {d}): two launches differ")
+        e4 = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        require(all(bool(torch.isfinite(a).all()) for a in got)
+                and all(within(a, b, K4_RTOL,
+                               atol + K2_SCALE * float(b.abs().max()))
+                        for a, b, atol in zip(got, want, (K4_FQ_ATOL,
+                                                          K4_FQ_ATOL,
+                                                          K4_X_ATOL))),
+                f"K4 ({j}, {d}) vs plain: {e4}")
+        shape = f"({j}, {d}) P={P_} n={LL_TRIALS} T={T_FIT}"
+        k3_ms = cuda_ms(lambda: ll_fwd(F_, Q_, X))
+        k3_st_ms = cuda_ms(lambda: ll_fwd(F_, Q_, X, stores=True))
+        k4_ms = cuda_ms(lambda: conditioned_log_likelihood_vjp(*args))
+        k3_plain = cuda_ms(
+            lambda: conditioned_log_likelihood_reference(F_, Q_, X), runs=1,
+            launches=1)
+        k4_plain = cuda_ms(
+            lambda: conditioned_log_likelihood_vjp_reference(*args), runs=1,
+            launches=1)
+        b3 = bound(ll_work(P_, LL_TRIALS, j, d, T_FIT))
+        b3s = bound(ll_work(P_, LL_TRIALS, j, d, T_FIT, stores=True))
+        b4 = bound(ll_bwd_work(P_, LL_TRIALS, j, d, T_FIT))
+        out["ll_fwd"][shape] = (k3_ms, *b3, e3, k3_plain)
+        out["ll_fwd"][shape + " stores"] = (k3_st_ms, *b3s, e3, None)
+        out["ll_bwd"][shape] = (k4_ms, *b4, e4, k4_plain)
+        log(f"[{card}] K3 {shape}: {k3_ms:.4f} ms (bound {b3[0]:.5f}, "
+            f"{b3[1]}), with the stores {k3_st_ms:.4f} ms (bound "
+            f"{b3s[0]:.5f}), max abs err vs plain {e3:.3e}, max rel err "
+            f"{float(((ll - ref) / ref).abs().max()):.3e} of |ll| ~ "
+            f"{float(ref.abs().mean()):.1f} (rtol {LL_RTOL}, atol "
+            f"{LL_ATOL}), covariance / mean stores' worst row max err / max "
+            f"|plain| {st_err[0]:.3e} / {st_err[1]:.3e}, largest share of "
+            f"the allowed error {st_share[0]:.3f} / {st_share[1]:.3f} "
+            f"(within {LL_RTOL}, {LL_ATOL} + {K3_STORE_SCALE} x the row's "
+            f"max |plain|); K4 "
+            f"{k4_ms:.4f} ms (bound {b4[0]:.5f}, {b4[1]}), "
+            f"two launches the same bits, max abs err {e4:.3e}; plain K3 / K4 "
+            f"{k3_plain:.2f} / {k4_plain:.2f} ms")
+        del x, sets, joint, F_, Q_, X, st, st_ref, got, again, want, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -963,7 +1395,7 @@ def main() -> int:
         dmodel.log_likelihood(dmodel.simulate(g, n=LL_TRIALS)[..., :2])
 
     warm = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         delay_path()
         torch.cuda.synchronize()
@@ -1044,7 +1476,7 @@ def main() -> int:
         "'error'): no copy from host memory, no host synchronization")
 
     warm = []
-    for _ in range(3):
+    for _ in range(2):
         t0 = time.perf_counter()
         delay_grad_path()
         torch.cuda.synchronize()
@@ -1413,19 +1845,47 @@ def main() -> int:
         f"events, phase 13), device busy {busy:.3f} ms "
         f"({100 * busy / wall:.2f}%) over {n_events} events")
 
+    log(f"phases 1-14: {time.perf_counter() - t_start:.1f} s")
+    # 15. the rest of the zoo, through the entry points a user calls
+    zoo_launches = zoo_paths(dev, card, names, all_counters, all_names)
+    log(f"phases 1-15: {time.perf_counter() - t_start:.1f} s")
+    # 16. the zoo's instances of K1-K4 against their plain versions
+    zoo_ms = zoo_instances(dev, card)
+
+    def zoo_rows(kernel, base):
+        """The kernel's times at its base shape and at the zoo's, with each
+        zoo shape's bound, error and plain time."""
+        rows = zoo_ms[kernel]
+        return ({**base, **{k: v[0] for k, v in rows.items()}},
+                {k: {"bound_ms": v[1], "bound_by": v[2], "max_abs_err": v[3],
+                     "plain_ms": v[4]} for k, v in rows.items()})
+
+    k1_shapes = zoo_rows("gains_fwd", {f"(2, 1, 2) B={B} T={T}": k1_ms})
+    k2_shapes = zoo_rows("gains_bwd", {
+        f"(2, 1, 2) B={CHAINS * CONDITIONS} T={T_FIT}": k2_ms,
+        f"(2, 1, 2) B={k2_large_shape[1]} T={k2_large_shape[0]}":
+            k2_large_ms})
+    k3_shapes = zoo_rows("ll_fwd", {
+        f"(4, 2) P={LL_SETS} n={LL_TRIALS} T={T}": k3_ms,
+        f"(5, 2) P={CHAINS * CONDITIONS} n={LL_TRIALS} T={T}": k3_inst_ms})
+    k4_shapes = zoo_rows("ll_bwd", {
+        f"(4, 2) P={F4.shape[0]} n={LL_TRIALS} T={T_FIT}": k4_ms,
+        f"(5, 2) P={CHAINS * CONDITIONS} n={LL_TRIALS} T={T}": k4_inst_ms})
     kernels = [
         {"name": "gains_fwd", "route": "cuda",
          "source": "lqg_tpu_torch/csrc/gains.cu",
          "replaces": "lqg_tpu/ops/pallas/gains.py:149",
          "launches": launches["gains_fwd"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "bound_by": k1_by, "library_ms": None,
+         "ms_by_shape": k1_shapes[0], "zoo_shapes": k1_shapes[1]},
         {"name": "ll_fwd", "route": "cuda",
          "source": "lqg_tpu_torch/csrc/likelihood.cu",
          "replaces": "lqg_tpu/ops/pallas/likelihood.py:160",
          "launches": launches["ll_fwd"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-         "bound_by": k3_by, "library_ms": None},
+         "bound_by": k3_by, "library_ms": None,
+         "ms_by_shape": k3_shapes[0], "zoo_shapes": k3_shapes[1]},
         {"name": "gains_bwd", "route": "cuda",
          "source": "lqg_tpu_torch/csrc/gains.cu",
          "replaces": "lqg_tpu/ops/pallas/gains.py:237",
@@ -1433,15 +1893,14 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None, "device_ms": k2_device[0][0],
          "in_path_ms": k2_in_path,
-         "ms_by_shape": {f"B={CHAINS * CONDITIONS} T={T_FIT}": k2_ms,
-                         f"B={k2_large_shape[1]} T={k2_large_shape[0]}":
-                         k2_large_ms}},
+         "ms_by_shape": k2_shapes[0], "zoo_shapes": k2_shapes[1]},
         {"name": "ll_bwd", "route": "cuda",
          "source": "lqg_tpu_torch/csrc/likelihood.cu",
          "replaces": "lqg_tpu/ops/pallas/likelihood.py:270",
          "launches": grad_launches["ll_bwd"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain, "bound_ms": k4_bound,
-         "bound_by": k4_by, "library_ms": None},
+         "bound_by": k4_by, "library_ms": None,
+         "ms_by_shape": k4_shapes[0], "zoo_shapes": k4_shapes[1]},
         {"name": "ll_blocked_fwd", "route": "cuda",
          "source": "lqg_tpu_torch/csrc/likelihood_blocked.cu",
          "replaces": "lqg_tpu/ops/pallas/likelihood_blocked.py:163",
@@ -1458,6 +1917,7 @@ def main() -> int:
          "cluster": dgrad_cluster["ll_blocked_bwd"],
          "ms_by_shape": by_shape["K6 ll_blocked_bwd"]},
     ]
+    log(f"zoo launches (phase 15): {json.dumps(zoo_launches)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

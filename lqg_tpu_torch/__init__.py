@@ -12,14 +12,18 @@ gradient up to the potential of the (hierarchical) inference models in
 :mod:`lqg_tpu_torch.infer` (``shared_params_lqg_model(...).potential``);
 and the same path for the subjective actor and the delay-register family
 (``SubjectiveActor``, ``TemporalDelayModel``, ``DelayedSubjectiveActor``),
-whose large joint state goes through the blocked likelihood kernels.
+whose large joint state goes through the blocked likelihood kernels, and for
+the rest of the model zoo (``PointMassBoundedActor``,
+``HandMotionModelTrackingTask``, ``SignalDependentNoiseActor``), all in
+:mod:`lqg_tpu_torch.models`.  NUTS (:func:`lqg_tpu_torch.infer.infer`)
+replays the potential's value and gradient from a CUDA graph.
 """
 
 __version__ = "0.1.0"
 
 from lqg_tpu_torch.spec import LQGSpec
 from lqg_tpu_torch.system import LQG, Actor, Dynamics, System, LQGDistribution
-from lqg_tpu_torch import infer
+from lqg_tpu_torch import infer, models
 
 __all__ = [
     "LQG",
@@ -29,5 +33,6 @@ __all__ = [
     "LQGSpec",
     "LQGDistribution",
     "infer",
+    "models",
     "__version__",
 ]

@@ -37,8 +37,14 @@ def spec_from_numpy(fields: Mapping[str, np.ndarray], device=None,
 def system_from_numpy(actor: Mapping[str, np.ndarray],
                       dynamics: Mapping[str, np.ndarray],
                       horizon: Optional[int] = None, device=None,
-                      dtype=torch.float32) -> System:
-    """A :class:`System` from the actor's and the dynamics' arrays."""
+                      dtype=torch.float32,
+                      control_noise: Optional[np.ndarray] = None) -> System:
+    """A :class:`System` from the actor's and the dynamics' arrays, and the
+    control-noise scales ``(k, n, m)`` of a system that has them."""
+    device = resolve_device(device)
     return System(actor=spec_from_numpy(actor, device, dtype),
                   dynamics=spec_from_numpy(dynamics, device, dtype),
-                  horizon=horizon)
+                  horizon=horizon,
+                  control_noise=None if control_noise is None else
+                  torch.tensor(np.asarray(control_noise), dtype=dtype,
+                               device=device))

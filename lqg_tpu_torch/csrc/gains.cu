@@ -11,6 +11,7 @@
 // row-major with the particle axis leading, one loop over t = 0..T-1 runs
 //   Riccati: H = R + B^T S B, G = B^T S A, L = -H^-1 G,
 //            S <- (Q + A^T S A) + (L^T H L + (L^T G + G^T L)),
+//            symmetrized at m > 1,
 //            L, H -> slot T-1-t;
 //   Kalman:  P <- A P A^T + VV, Gk = F P F^T + WW, K = P F^T Gk^-1,
 //            P <- P - K (P F^T)^T,  K -> slot t.
@@ -37,6 +38,17 @@
 namespace {
 
 using namespace lqg;
+
+// out = (x + x^T) / 2 where PROJECT, else x.
+template <int N, bool PROJECT>
+__device__ __forceinline__ void sym_gauge(const float* x, float* out) {
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      out[r * N + q] = PROJECT ? 0.5f * (x[r * N + q] + x[q * N + r])
+                               : x[r * N + q];
+}
 
 template <int N, int M, int P, bool STORES>
 __global__ void __launch_bounds__(128)
@@ -97,9 +109,13 @@ __global__ void __launch_bounds__(128)
     matmul<N, M, N>(Lt, G, LtG);
     transpose<M, N>(G, Gt);
     matmul<N, M, N>(Gt, L, GtL);
+    float X[N * N];
 #pragma unroll
     for (int i = 0; i < N * N; ++i)
-      S[i] = (Q[i] + AtSA[i]) + (LtHL[i] + (LtG[i] + GtL[i]));
+      X[i] = (Q[i] + AtSA[i]) + (LtHL[i] + (LtG[i] + GtL[i]));
+    // at m > 1 the carry in the symmetric gauge: unprojected, its
+    // antisymmetric part reaches H and can grow from rounding
+    sym_gauge<N, (M > 1)>(X, S);
     store<M * N>(L_out + rev * (M * N), L);
     store<M * M>(H_out + rev * (M * M), H);
 
@@ -131,7 +147,8 @@ __global__ void __launch_bounds__(128)
 // the Riccati adjoint (its primal ran backward in time) reads S, Lbar, Hbar
 // at slot i ascending, the Kalman adjoint reads P, Kbar at slot T-1-i
 // descending.  Of a step's work only two small linear maps are serial:
-//   Riccati:  Lb = Lbar + (HL Sb^T + (G Sb^T + (G Sb + H (L Sb))))
+//   Riccati:  Sb = sym(Sb) at m > 1 (the adjoint of K1's projection)
+//             Lb = Lbar + (HL Sb^T + (G Sb^T + (G Sb + H (L Sb))))
 //             Hb = (Hbar + L (Sb L^T)) + (Hinv Lb) (G^T Hinv)
 //             Gbar = (L Sb + L Sb^T) - Hinv Lb
 //             SBbar = B Hb,  SAbar = A Sb + B Gbar
@@ -172,7 +189,8 @@ __global__ void __launch_bounds__(128)
 //   another; nothing else runs on these lanes;
 // - warp 4 forms each step's contributions, lane l for step l (zero past
 //   T), sums the chunk over its lanes with the transpose reduction of
-//   pipeline.cuh (a fixed xor tree) and adds the chunk sums to running
+//   pipeline.cuh (a fixed xor tree), 32 values a round (nR + nK values:
+//   27 at (2, 1, 2), 120 at (5, 1, 2)), and adds the chunk sums to running
 //   totals in chunk order: no atomics, the same bits on every launch.
 // The copy warp runs up to three chunks ahead of the accumulate warp, the
 // recompute warp with it; mbarriers hand each slot from role to role
@@ -227,15 +245,16 @@ struct BwdSlot {
                        aS = aKO + kChunk * KO, aRA = aS + kChunk * SS,
                        aP = aRA + kChunk * RA, aKA = aP + kChunk * PS,
                        floats = aKA + kChunk * KA;
-  static constexpr size_t bytes =
-      kBwdBarBytes + sizeof(float) * (size_t)kSlots * floats;
-  // the accumulate warp's sums, one value a lane: Rbar, Qbar, A's Riccati
-  // part, Bbar; and WWbar, Fbar, VVbar, A's Kalman part
+  // the accumulate warp's sums, in rounds of 32 values, one value a lane:
+  // Rbar, Qbar, A's Riccati part, Bbar; and WWbar, Fbar, VVbar, A's Kalman
+  // part; their totals meet in shared memory after the ring
   static constexpr int vR = 0, vQ = M * M, vAR = vQ + N * N,
                        vB = vAR + N * N, nR = vB + N * M;
   static constexpr int vW = 0, vF = P * P, vV = vF + P * N,
                        vAK = vV + N * N, nK = vAK + N * N;
-  static_assert(nR <= 32 && nK <= 32, "a chunk's sums exceed one warp");
+  static constexpr int roundsR = (nR + 31) / 32, roundsK = (nK + 31) / 32;
+  static constexpr size_t bytes =
+      kBwdBarBytes + sizeof(float) * ((size_t)kSlots * floats + nR + nK);
 };
 
 template <int S>
@@ -421,15 +440,18 @@ __device__ __forceinline__ void bwd_riccati(float* ring, uint64_t* bar,
       float* Gbar = o + L::oGbar;
       float* SBbar = o + L::oSBbar;
       float* SAbar = o + L::oSAbar;
-      store<N * N>(o + L::oSb, Sb);
+      // the adjoint of K1's projection of its carry at m > 1
+      float Sbs[N * N];
+      sym_gauge<N, (M > 1)>(Sb, Sbs);
+      store<N * N>(o + L::oSb, Sbs);
       // Lb = Lbar + (HL Sb^T + (G Sb^T + (G Sb + H (L Sb))))
       float Sbt[N * N], HLSbt[M * N], GSbt[M * N], GSb[M * N], LSb[M * N],
           HLSb[M * N], Lb[M * N];
-      transpose<N, N>(Sb, Sbt);
+      transpose<N, N>(Sbs, Sbt);
       matmul<M, N, N>(HL, Sbt, HLSbt);
       matmul<M, N, N>(G, Sbt, GSbt);
-      matmul<M, N, N>(G, Sb, GSb);
-      matmul<M, N, N>(Lg, Sb, LSb);
+      matmul<M, N, N>(G, Sbs, GSb);
+      matmul<M, N, N>(Lg, Sbs, LSb);
       matmul<M, M, N>(H, LSb, HLSb);
 #pragma unroll
       for (int k = 0; k < M * N; ++k)
@@ -437,7 +459,7 @@ __device__ __forceinline__ void bwd_riccati(float* ring, uint64_t* bar,
       // Hb = (Hbar + L (Sb L^T)) + (Hinv Lb) (G^T Hinv)
       float Lt[N * M], SbLt[N * M], LSbLt[M * M], HinvLb[M * N], HbL[M * M];
       transpose<M, N>(Lg, Lt);
-      matmul<N, N, M>(Sb, Lt, SbLt);
+      matmul<N, N, M>(Sbs, Lt, SbLt);
       matmul<M, N, M>(Lg, SbLt, LSbLt);
       matmul<M, M, N>(Hinv, Lb, HinvLb);
       matmul<M, N, M>(HinvLb, GtHinv, HbL);
@@ -452,7 +474,7 @@ __device__ __forceinline__ void bwd_riccati(float* ring, uint64_t* bar,
       // SBbar = B Hb;  SAbar = A Sb + B Gbar
       float ASb[N * N], BGbar[N * N];
       matmul<N, M, M>(Bm, Hb, SBbar);
-      matmul<N, N, N>(A, Sb, ASb);
+      matmul<N, N, N>(A, Sbs, ASb);
       matmul<N, M, N>(Bm, Gbar, BGbar);
 #pragma unroll
       for (int k = 0; k < N * N; ++k) SAbar[k] = ASb[k] + BGbar[k];
@@ -549,8 +571,24 @@ __device__ __forceinline__ void bwd_kalman(float* ring, uint64_t* bar,
   store<N * N>(S0bar_ + (size_t)b * N * N, Pb);
 }
 
+// Adds the warp's sums of a step's values v[0..32 R) to the running totals,
+// round r's sum of value 32 r + l to lane l's tot[r]: the transpose
+// reduction of pipeline.cuh, a fixed xor tree for every value.
+template <int R>
+__device__ __forceinline__ void add_rounds(const float (&v)[32 * R],
+                                           float (&tot)[R], int lane) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float w[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) w[k] = v[32 * r + k];
+    tot[r] = tot[r] + warp_transpose_sum(w, lane);
+  }
+}
+
 // Each step's contributions, lane l for step l, summed over the chunk by the
-// transpose reduction and added to lane v's running total of value v.
+// transpose reduction and added to lane l's running totals, round r holding
+// value 32 r + l; the totals go out through shared memory.
 template <int N, int M, int P>
 __device__ __forceinline__ void bwd_accumulate(
     float* ring, uint64_t* bar, float* __restrict__ Abar_,
@@ -559,7 +597,10 @@ __device__ __forceinline__ void bwd_accumulate(
     float* __restrict__ VVbar_, float* __restrict__ WWbar_, int b, int T,
     int NC, int lane) {
   using L = BwdSlot<N, M, P>;
-  float totR = 0.0f, totK = 0.0f;
+  constexpr int RR = L::roundsR, RK = L::roundsK;
+  float totR[RR], totK[RK];
+  fill<RR>(totR, 0.0f);
+  fill<RK>(totK, 0.0f);
   for (int c = 0; c < NC; ++c) {
     const int s = c % kSlots, u = c / kSlots;
     mbar_wait(bar + kReady + s, u & 1);
@@ -583,8 +624,8 @@ __device__ __forceinline__ void bwd_accumulate(
     const float* Gbar = ro + L::oGbar;
     const float* SBbar = ro + L::oSBbar;
     const float* SAbar = ro + L::oSAbar;
-    float vR[32];
-    fill<32>(vR, 0.0f);
+    float vR[32 * RR];
+    fill<32 * RR>(vR, 0.0f);
     store<M * M>(vR + L::vR, Hb);
     store<N * N>(vR + L::vQ, Sb);
     // A += SA Sb^T + S SAbar
@@ -604,12 +645,16 @@ __device__ __forceinline__ void bwd_accumulate(
 #pragma unroll
     for (int k = 0; k < N * M; ++k)
       vR[L::vB + k] = SAGbt[k] + (SBHbt[k] + SSBbar[k]);
+    // steps past T contribute zeros, whatever their stale entries hold
+#pragma unroll
+    for (int k = 0; k < 32 * RR; ++k) vR[k] = valid ? vR[k] : 0.0f;
+    add_rounds<RR>(vR, totR, lane);
 
     const float* Gkbar = ko + L::oGkbar;
     const float* PFtb = ko + L::oPFtb;
     const float* Ppbar = ko + L::oPpbar;
-    float vK[32];
-    fill<32>(vK, 0.0f);
+    float vK[32 * RK];
+    fill<32 * RK>(vK, 0.0f);
     store<P * P>(vK + L::vW, Gkbar);
     // F += Gkbar PFt^T + PFtb^T Pp
     float PFtT[P * N], GkbarPFtT[P * N], PFtbT[P * N], PFtbTPp[P * N];
@@ -630,28 +675,35 @@ __device__ __forceinline__ void bwd_accumulate(
     matmul<N, N, N>(Ppsym, AP, PpsymAP);
 #pragma unroll
     for (int k = 0; k < N * N; ++k) vK[L::vAK + k] = PpsymAP[k];
-
-    // steps past T contribute zeros, whatever their stale entries hold
 #pragma unroll
-    for (int k = 0; k < 32; ++k) {
-      vR[k] = valid ? vR[k] : 0.0f;
-      vK[k] = valid ? vK[k] : 0.0f;
-    }
-    totR = totR + warp_transpose_sum(vR, lane);
-    totK = totK + warp_transpose_sum(vK, lane);
+    for (int k = 0; k < 32 * RK; ++k) vK[k] = valid ? vK[k] : 0.0f;
+    add_rounds<RK>(vK, totK, lane);
   }
-  // A's cotangent: the Riccati total plus the Kalman total
-  const int k = lane - L::vAR;
-  const float aK = __shfl_sync(0xffffffffu, totK,
-                               L::vAK + min(max(k, 0), N * N - 1));
+  // the totals meet in shared memory: the Riccati ones, then the Kalman ones
+  float* sums = ring + kSlots * L::floats;
+#pragma unroll
+  for (int r = 0; r < RR; ++r)
+    if (32 * r + lane < L::nR) sums[32 * r + lane] = totR[r];
+#pragma unroll
+  for (int r = 0; r < RK; ++r)
+    if (32 * r + lane < L::nK) sums[L::nR + 32 * r + lane] = totK[r];
+  __syncwarp();
+  const float* sK = sums + L::nR;
   const size_t nn = (size_t)b * N * N;
-  if (lane < L::vQ) Rbar_[(size_t)b * M * M + lane - L::vR] = totR;
-  else if (lane < L::vAR) Qbar_[nn + lane - L::vQ] = totR;
-  else if (lane < L::vB) Abar_[nn + k] = totR + aK;
-  else if (lane < L::nR) Bbar_[(size_t)b * N * M + lane - L::vB] = totR;
-  if (lane < L::vF) WWbar_[(size_t)b * P * P + lane - L::vW] = totK;
-  else if (lane < L::vV) Fbar_[(size_t)b * P * N + lane - L::vF] = totK;
-  else if (lane < L::vAK) VVbar_[nn + lane - L::vV] = totK;
+  for (int k = lane; k < M * M; k += 32)
+    Rbar_[(size_t)b * M * M + k] = sums[L::vR + k];
+  for (int k = lane; k < N * M; k += 32)
+    Bbar_[(size_t)b * N * M + k] = sums[L::vB + k];
+  for (int k = lane; k < P * P; k += 32)
+    WWbar_[(size_t)b * P * P + k] = sK[L::vW + k];
+  for (int k = lane; k < P * N; k += 32)
+    Fbar_[(size_t)b * P * N + k] = sK[L::vF + k];
+  for (int k = lane; k < N * N; k += 32) {
+    Qbar_[nn + k] = sums[L::vQ + k];
+    VVbar_[nn + k] = sK[L::vV + k];
+    // A's cotangent: the Riccati total plus the Kalman total
+    Abar_[nn + k] = sums[L::vAR + k] + sK[L::vAK + k];
+  }
 }
 
 template <int N, int M, int P>
@@ -735,6 +787,24 @@ int launch_bwd(const float* A, const float* B, const float* R, const float* F,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiated (n, m, p): calls fn with Dims<n, m, p>, or returns
+// cudaErrorInvalidValue (lqg_tpu_torch/ops/kernels/gains.py:INSTANCES).
+template <int N_, int M_, int P_>
+struct Dims {
+  static constexpr int N = N_, M = M_, P = P_;
+};
+
+template <class Fn>
+int dispatch(int n, int m, int p, Fn&& fn) {
+  if (n == 2 && m == 1 && p == 2) return fn(Dims<2, 1, 2>{});
+  if (n == 2 && m == 1 && p == 1) return fn(Dims<2, 1, 1>{});
+  if (n == 3 && m == 1 && p == 2) return fn(Dims<3, 1, 2>{});
+  if (n == 4 && m == 1 && p == 3) return fn(Dims<4, 1, 3>{});
+  if (n == 5 && m == 1 && p == 2) return fn(Dims<5, 1, 2>{});
+  if (n == 4 && m == 2 && p == 2) return fn(Dims<4, 2, 2>{});
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Both entries return cudaGetLastError() after the launch (K2: or the error
@@ -751,18 +821,12 @@ extern "C" int lqg_gains_fwd(const float* A, const float* B, const float* Q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1 || T < 1 || (S_st == nullptr) != (P_st == nullptr))
     return cudaErrorInvalidValue;
-  if (n == 2 && m == 1 && p == 2)
-    launch_fwd<2, 1, 2>(A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st,
-                        batch, T, eps, s);
-  else if (n == 2 && m == 1 && p == 1)
-    launch_fwd<2, 1, 1>(A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st,
-                        batch, T, eps, s);
-  else if (n == 3 && m == 1 && p == 2)
-    launch_fwd<3, 1, 2>(A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st,
-                        batch, T, eps, s);
-  else
-    return cudaErrorInvalidValue;
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(n, m, p, [&](auto d) {
+    using D = decltype(d);
+    launch_fwd<D::N, D::M, D::P>(A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K,
+                                 S_st, P_st, batch, T, eps, s);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 extern "C" int lqg_gains_bwd(const float* A, const float* B, const float* R,
@@ -776,19 +840,13 @@ extern "C" int lqg_gains_bwd(const float* A, const float* B, const float* R,
                              int T, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (batch < 1 || T < 1) return cudaErrorInvalidValue;
-  if (n == 2 && m == 1 && p == 2)
-    return launch_bwd<2, 1, 2>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
-                               Kbar, Abar, Bbar, Qbar, Rbar, Qfbar, Fbar,
-                               VVbar, WWbar, S0bar, batch, T, eps, s);
-  if (n == 2 && m == 1 && p == 1)
-    return launch_bwd<2, 1, 1>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
-                               Kbar, Abar, Bbar, Qbar, Rbar, Qfbar, Fbar,
-                               VVbar, WWbar, S0bar, batch, T, eps, s);
-  if (n == 3 && m == 1 && p == 2)
-    return launch_bwd<3, 1, 2>(A, B, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
-                               Kbar, Abar, Bbar, Qbar, Rbar, Qfbar, Fbar,
-                               VVbar, WWbar, S0bar, batch, T, eps, s);
-  return cudaErrorInvalidValue;
+  return dispatch(n, m, p, [&](auto d) {
+    using D = decltype(d);
+    return launch_bwd<D::N, D::M, D::P>(A, B, R, F, VV, WW, S_st, P_st, Lbar,
+                                        Hbar, Kbar, Abar, Bbar, Qbar, Rbar,
+                                        Qfbar, Fbar, VVbar, WWbar, S0bar,
+                                        batch, T, eps, s);
+  });
 }
 
 // K2's steps a chunk, which the plain version's sum order repeats

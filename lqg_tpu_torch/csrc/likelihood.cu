@@ -991,6 +991,24 @@ static bool launch_ok(int P, int n, int T, int nt, const float* state) {
          nt % 32 == 0 && (n <= nt || state != nullptr);
 }
 
+// The instantiated (j, d): calls fn with JD<j, d>, or returns
+// cudaErrorInvalidValue (lqg_tpu_torch/ops/kernels/likelihood.py:INSTANCES).
+template <int J_, int D_>
+struct JD {
+  static constexpr int J = J_, D = D_;
+};
+
+template <class Fn>
+static int dispatch(int j, int d, Fn&& fn) {
+  if (j == 4 && d == 2) return fn(JD<4, 2>{});
+  if (j == 5 && d == 2) return fn(JD<5, 2>{});
+  if (j == 8 && d == 2) return fn(JD<8, 2>{});
+  if (j == 8 && d == 4) return fn(JD<8, 4>{});
+  if (j == 10 && d == 2) return fn(JD<10, 2>{});
+  if (j == 10 && d == 4) return fn(JD<10, 4>{});
+  return cudaErrorInvalidValue;
+}
+
 // Both entries return the first CUDA error of the attribute call or the
 // launch, or cudaErrorInvalidValue for a (j, d) that is not instantiated or
 // sizes outside the kernels' scope.  K3 writes the stores when Sig_st and
@@ -1004,17 +1022,14 @@ extern "C" int lqg_ll_fwd(const float* F, const float* Q, const float* X,
       (Sig_st == nullptr) != (mu_st == nullptr))
     return cudaErrorInvalidValue;
   const bool st = Sig_st != nullptr;
-  if (j == 4 && d == 2)
-    return st ? launch_fwd<4, 2, true>(F, Q, X, ll, Sig_st, mu_st, state, P,
-                                       n, T, nt, eps, log2pi_term, s)
-              : launch_fwd<4, 2, false>(F, Q, X, ll, nullptr, nullptr, state,
-                                        P, n, T, nt, eps, log2pi_term, s);
-  if (j == 5 && d == 2)
-    return st ? launch_fwd<5, 2, true>(F, Q, X, ll, Sig_st, mu_st, state, P,
-                                       n, T, nt, eps, log2pi_term, s)
-              : launch_fwd<5, 2, false>(F, Q, X, ll, nullptr, nullptr, state,
-                                        P, n, T, nt, eps, log2pi_term, s);
-  return cudaErrorInvalidValue;
+  return dispatch(j, d, [&](auto jd) {
+    using S = decltype(jd);
+    return st ? launch_fwd<S::J, S::D, true>(F, Q, X, ll, Sig_st, mu_st, state,
+                                             P, n, T, nt, eps, log2pi_term, s)
+              : launch_fwd<S::J, S::D, false>(F, Q, X, ll, nullptr, nullptr,
+                                              state, P, n, T, nt, eps,
+                                              log2pi_term, s);
+  });
 }
 
 extern "C" int lqg_ll_bwd(const float* F, const float* X, const float* w,
@@ -1024,11 +1039,9 @@ extern "C" int lqg_ll_bwd(const float* F, const float* X, const float* w,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!launch_ok(P, n, T, nt, state)) return cudaErrorInvalidValue;
-  if (j == 4 && d == 2)
-    return launch_bwd<4, 2>(F, X, w, Sig_st, mu_st, Fbar, Qbar, Xbar, state, P,
-                            n, T, nt, eps, s);
-  if (j == 5 && d == 2)
-    return launch_bwd<5, 2>(F, X, w, Sig_st, mu_st, Fbar, Qbar, Xbar, state, P,
-                            n, T, nt, eps, s);
-  return cudaErrorInvalidValue;
+  return dispatch(j, d, [&](auto jd) {
+    using S = decltype(jd);
+    return launch_bwd<S::J, S::D>(F, X, w, Sig_st, mu_st, Fbar, Qbar, Xbar,
+                                  state, P, n, T, nt, eps, s);
+  });
 }

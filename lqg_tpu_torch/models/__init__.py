@@ -1,6 +1,7 @@
-"""Model zoo of the port: the dim-per-axis tracking models, the subjective
-actor and the delay-register family (counterpart of :mod:`lqg_tpu.models`;
-the other models come with later slices)."""
+"""Model zoo of the port (counterpart of :mod:`lqg_tpu.models`): the
+dim-per-axis tracking models, the subjective actor, the delay-register
+family, the point-mass and hand-motion models and the signal-dependent
+noise actor."""
 
 from lqg_tpu_torch.models.basic import (
     TrackingTask,
@@ -14,6 +15,9 @@ from lqg_tpu_torch.models.delay import (
     TemporalDelayModel,
     delay_system,
 )
+from lqg_tpu_torch.models.point_mass import PointMassBoundedActor
+from lqg_tpu_torch.models.hand import HandMotionModelTrackingTask
+from lqg_tpu_torch.models.signal_dep import SignalDependentNoiseActor
 
 __all__ = [
     "TrackingTask",
@@ -25,4 +29,7 @@ __all__ = [
     "TemporalDelayModel",
     "DelayedSubjectiveActor",
     "delay_system",
+    "PointMassBoundedActor",
+    "HandMotionModelTrackingTask",
+    "SignalDependentNoiseActor",
 ]

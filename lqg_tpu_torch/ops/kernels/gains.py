@@ -49,7 +49,16 @@ and unprojected the carry can grow (a step map of spectral radius above
 1.05 for a bounded actor with ``action_cost=0.01``,
 ``action_variability=0.1``, ``sigma_target=2``, ``sigma_cursor=0.5``:
 beyond 1e21 over T=1008), which leaves the cotangents of ``F`` and ``A``
-to cancellation between huge terms.
+to cancellation between huge terms.  For the same reason K1 keeps its
+Riccati carry in the symmetric gauge at m > 1 (``gains.py:207-209`` does
+not): there the carry's antisymmetric part reaches the control Hessian,
+whose closed-form inverse reads one off-diagonal entry, and grows from
+float32 rounding where the open loop is unstable (on a random (4, 2, 2)
+spec ``L`` is off by more than 1 against float64 at T=65 unprojected,
+within 1e-4 projected: ``tests/test_torch_gains_grad.py``); K2 applies the
+projection's adjoint to its Riccati carry.  At m = 1 the Hessian is a scalar, the antisymmetric
+part only rides along (``A^T S_a A``), and both keep the Pallas kernel's
+arithmetic.
 
 The plain PyTorch versions :func:`fused_gains_reference` and
 :func:`fused_gains_vjp_reference` repeat the same arithmetic (same
@@ -74,8 +83,12 @@ CHUNK = 32  # K2's steps a chunk, one lane a step (csrc/gains.cu: kChunk)
 
 # (n, m, p) instantiated in csrc/gains.cu: the dim=1 tracking models
 # (BoundedActor, OptimalActor: (2, 1, 2); RelativeObservation: (2, 1, 1);
-# the SubjectiveActor's 3-state internal model: (3, 1, 2))
-INSTANCES = frozenset({(2, 1, 2), (2, 1, 1), (3, 1, 2)})
+# the SubjectiveActor's 3-state internal model: (3, 1, 2)), PointMass
+# (4, 1, 3), Hand (5, 1, 2) and RelativeObservation(dim=2) (4, 2, 2): every
+# model of the zoo inside lqg_tpu's kernel scope (n <= 8, m <= 2, p <= 3,
+# lqg_tpu/ops/pallas/gains.py:621-630)
+INSTANCES = frozenset({(2, 1, 2), (2, 1, 1), (3, 1, 2), (4, 1, 3), (5, 1, 2),
+                       (4, 2, 2)})
 
 
 def _sym(M: torch.Tensor) -> torch.Tensor:
@@ -145,6 +158,8 @@ def _gains_reference(A, Bm, Q, R, Qf, F, VV, WW, Sigma0, horizon: int,
         HL = H @ L
         Lt = mT(L)
         S = (Q + At @ SA) + (Lt @ HL + (Lt @ G + mT(G) @ L))
+        if Bm.shape[-1] > 1:  # at m > 1 in the symmetric gauge
+            S = _sym(S)
         Ls.append(L)
         Hs.append(H)
         # Kalman forward
@@ -229,6 +244,8 @@ def fused_gains_vjp_reference(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
     Sbs, Hbs, Gbars, SBbars, SAbars = [], [], [], [], []
     Gkbars, PFtbs, Ppbars = [], [], []
     for i in range(T):
+        if Bm.shape[-1] > 1:  # the adjoint of K1's projection at m > 1
+            Sb = _sym(Sb)
         Sbs.append(Sb)
         Sbt = mT(Sb)
         LSb = L[i] @ Sb

@@ -71,8 +71,12 @@ from lqg_tpu_torch.ops.kernels.gains import EPS, _on_card, _sym, _sym_inv_det
 _LOG_2PI = math.log(2.0 * math.pi)
 
 # (j, d) instantiated in csrc/likelihood.cu: every dim=1 tracking model
-# (4, 2), and the SubjectiveActor's 2 + 3 joint states (5, 2)
-INSTANCES = frozenset({(4, 2), (5, 2)})
+# (4, 2), the SubjectiveActor's 2 + 3 joint states (5, 2), PointMass (8, 2)
+# or (8, 4) by the dims observed, the dim=2 tracking models (8, 4), Hand
+# (10, 2) and SubjectiveActor(dim=2) (10, 4): every model of the zoo inside
+# lqg_tpu's kernel scope (j <= 12, d <= 4,
+# lqg_tpu/ops/pallas/likelihood.py:456-460)
+INSTANCES = frozenset({(4, 2), (5, 2), (8, 2), (8, 4), (10, 2), (10, 4)})
 MAX_TRIAL_THREADS = 128  # csrc/likelihood.cu kMaxTrialThreads
 
 

@@ -1,7 +1,11 @@
 """Small-matrix linear algebra, batch-first (port of :mod:`lqg_tpu.ops.linalg`).
 
 State dims are tiny (2-40); every function broadcasts over leading batch axes
-and solves through Cholesky factors.
+and solves through Cholesky factors.  Nothing here waits for the card: the
+factorizations skip their host-side error checks (``cholesky_ex``,
+``solve_ex``), and :func:`expm` and :func:`make_psd` replace
+``torch.linalg.matrix_exp`` and ``torch.linalg.eigh``, which read their
+input's norms or their error codes on the host.
 """
 
 from __future__ import annotations
@@ -64,3 +68,166 @@ def regularize_spd(H: torch.Tensor, eps: float, mode: str) -> torch.Tensor:
         lift = torch.clamp(eps - evals[..., 0], min=0.0)
         return H + lift[..., None, None] * _eye_like(H)
     raise ValueError(f"unknown regularization mode: {mode!r}")
+
+
+# jax.scipy.linalg.expm's Pade numerator coefficients b_0..b_m by degree m
+_PADE = {
+    3: (120., 60., 12., 1.),
+    5: (30240., 15120., 3360., 420., 30., 1.),
+    7: (17297280., 8648640., 1995840., 277200., 25200., 1512., 56., 1.),
+    9: (17643225600., 8821612800., 2075673600., 302702400., 30270240.,
+        2162160., 110880., 3960., 90., 1.),
+    13: (64764752532480000., 32382376266240000., 7771770303897600.,
+         1187353796428800., 129060195264000., 10559470521600., 670442572800.,
+         33522128640., 1323241920., 40840800., 960960., 16380., 182., 1.),
+}
+# per dtype: the 1-norm a Pade approximant covers unscaled, the 1-norms at
+# which the degree steps up, and the degrees
+_EXPM_RULE = {
+    torch.float64: (5.371920351148152,
+                    (1.495585217958292e-002, 2.539398330063230e-001,
+                     9.504178996162932e-001, 2.097847961257068e+000),
+                    (3, 5, 7, 9, 13)),
+    torch.float32: (3.925724783138660,
+                    (4.258730016922831e-001, 1.880152677804762e+000),
+                    (3, 5, 7)),
+}
+
+
+def _pade(m: int, A, A2, A4, A6, eye):
+    """Odd and even parts ``(U, V)`` of the degree-``m`` Pade approximant,
+    in ``jax.scipy.linalg``'s order of operations."""
+    b = _PADE[m]
+    if m == 3:
+        return A @ (b[3] * A2 + b[1] * eye), b[2] * A2 + b[0] * eye
+    if m == 5:
+        return (A @ (b[5] * A4 + b[3] * A2 + b[1] * eye),
+                b[4] * A4 + b[2] * A2 + b[0] * eye)
+    if m == 7:
+        return (A @ (b[7] * A6 + b[5] * A4 + b[3] * A2 + b[1] * eye),
+                b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * eye)
+    if m == 9:
+        A8 = A6 @ A2
+        return (A @ (b[9] * A8 + b[7] * A6 + b[5] * A4 + b[3] * A2
+                     + b[1] * eye),
+                b[8] * A8 + b[6] * A6 + b[4] * A4 + b[2] * A2 + b[0] * eye)
+    U = A @ (A6 @ (b[13] * A6 + b[11] * A4 + b[9] * A2) + b[7] * A6
+             + b[5] * A4 + b[3] * A2 + b[1] * eye)
+    V = (A6 @ (b[12] * A6 + b[10] * A4 + b[8] * A2) + b[6] * A6 + b[4] * A4
+         + b[2] * A2 + b[0] * eye)
+    return U, V
+
+
+def expm(A: torch.Tensor, max_squarings: int = 16) -> torch.Tensor:
+    """Matrix exponential of ``A (..., N, N)`` by the algorithm of
+    ``jax.scipy.linalg.expm``: scaling by ``2^-s``, a Pade approximant whose
+    degree the unscaled 1-norm picks, ``s`` squarings, NaN where ``s``
+    exceeds ``max_squarings``.
+
+    The degree and ``s`` are chosen per matrix on the device
+    (``torch.where`` over the candidates, ``max_squarings`` squarings each
+    kept or not), a fixed sequence of operations: no value is read on the
+    host, so the card is never waited for and a CUDA graph can capture it.
+    Gradients flow through the chosen approximant and squarings, as JAX's
+    do through the branch ``lax.switch`` and ``lax.cond`` take.
+    """
+    if A.dtype not in _EXPM_RULE:
+        raise TypeError(f"expm takes float32 or float64, got {A.dtype}")
+    maxnorm, conds, degrees = _EXPM_RULE[A.dtype]
+    norm = A.abs().sum(-2).amax(-1)  # the 1-norm
+    s = torch.clamp(torch.floor(torch.log2(norm / maxnorm)), min=0).detach()
+    As = A / torch.exp2(s)[..., None, None]
+    step = sum((norm >= c).to(torch.int64) for c in conds)  # jnp.digitize
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    A2 = As @ As
+    A4 = A2 @ A2
+    A6 = A4 @ A2
+    U = V = None
+    for k, m in enumerate(degrees):
+        u, v = _pade(m, As, A2, A4, A6, eye)
+        pick = (step == k)[..., None, None]
+        U = u if U is None else torch.where(pick, u, U)
+        V = v if V is None else torch.where(pick, v, V)
+    R = torch.linalg.solve_ex(V - U, U + V)[0]
+    for k in range(max_squarings):
+        R = torch.where((s > k)[..., None, None], R @ R, R)
+    return torch.where((s > max_squarings)[..., None, None], torch.nan, R)
+
+
+JACOBI_SWEEPS = 6  # cyclic sweeps of eigh_jacobi: converged at n <= 4
+
+
+def eigh_jacobi(S: torch.Tensor):
+    """Eigenvalues and eigenvectors ``(w, Vec)`` of symmetric ``S (..., n,
+    n)``, ``S = Vec diag(w) Vec^T``, by cyclic Jacobi rotations: a fixed
+    number of sweeps of tensor operations, nothing read on the host.  For the
+    small matrices of the model constructors (n <= 4), where
+    ``torch.linalg.eigh`` checks its error code on the host.  Eigenvalues
+    are not sorted; not differentiable (see :func:`make_psd`)."""
+    n = S.shape[-1]
+    like = dict(dtype=S.dtype, device=S.device)
+    eye = torch.eye(n, **like)
+    Vec = eye.expand(S.shape).clone()
+    for _ in range(JACOBI_SWEEPS):
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                # the rotation zeroing S[p, q] (Golub and Van Loan 8.5.2),
+                # t = tan(theta) in a form without division by S[p, q]
+                d = S[..., q, q] - S[..., p, p]
+                a = S[..., p, q]
+                r2 = d * d + 4.0 * a * a
+                flat = r2 == 0  # already diagonal in (p, q)
+                r = torch.sqrt(torch.where(flat, 1.0, r2))
+                sign = torch.where(d >= 0, 1.0, -1.0)
+                t = torch.where(flat, 0.0,
+                                2.0 * sign * a / torch.where(flat, 1.0,
+                                                             d.abs() + r))
+                c = torch.rsqrt(1.0 + t * t)
+                sn = t * c
+                J = eye.expand(S.shape).clone()
+                J[..., p, p] = c
+                J[..., q, q] = c
+                J[..., p, q] = sn
+                J[..., q, p] = -sn
+                S = mT(J) @ S @ J
+                Vec = Vec @ J
+    return torch.diagonal(S, dim1=-2, dim2=-1), Vec
+
+
+class _ClipSpectrum(torch.autograd.Function):
+    """``Vec diag(max(w, eps)) Vec^T`` of a symmetric matrix, with the
+    spectral-function adjoint: ``S-bar = Vec (G o (Vec^T F-bar Vec))
+    Vec^T``, ``G`` the divided differences of ``max(., eps)`` over the
+    eigenvalues (its derivative where two coincide), the quantity
+    ``jax.grad`` forms through ``jnp.linalg.eigh``."""
+
+    @staticmethod
+    def forward(ctx, S, eps):
+        w, Vec = eigh_jacobi(S)
+        g = torch.clamp(w, min=eps)
+        ctx.eps = eps
+        ctx.save_for_backward(w, g, Vec)
+        return (Vec * g[..., None, :]) @ mT(Vec)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, Fbar):
+        w, g, Vec = ctx.saved_tensors
+        dw = w[..., :, None] - w[..., None, :]
+        same = dw == 0
+        # the derivative of max(w, eps): 1 above eps, 1/2 at it (as
+        # jnp.maximum splits a tie), 0 below
+        slope = (w > ctx.eps).to(w.dtype) + 0.5 * (w == ctx.eps).to(w.dtype)
+        G = torch.where(same, 0.5 * (slope[..., :, None] + slope[..., None, :]),
+                        (g[..., :, None] - g[..., None, :])
+                        / torch.where(same, 1.0, dw))
+        return Vec @ (G * (mT(Vec) @ Fbar @ Vec)) @ mT(Vec), None
+
+
+def make_psd(M: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Clip the eigenvalues of a symmetric matrix to ``>= eps`` (port of
+    ``lqg_tpu.ops.linalg.make_psd``, reference
+    ``lqg/tracking/point_mass.py:130-144``), for the small matrices of the
+    model constructors: the spectrum comes from :func:`eigh_jacobi`, so
+    nothing waits for the card."""
+    return _ClipSpectrum.apply(symmetrize(M), eps)

@@ -5,8 +5,8 @@ Batch-first over leading axes, Cholesky solves on the control Hessian, and
 the three guards of :func:`lqg_tpu_torch.ops.linalg.regularize_spd`.  The
 time loop is a Python loop of batched tensor ops; on the card the fused
 gains kernel (:mod:`lqg_tpu_torch.ops.kernels.gains`) replaces it where the
-spec fits.  ``backward_multiplicative`` (signal-dependent noise) is not
-ported yet.
+spec fits.  :func:`backward_multiplicative` is the pass with
+control-multiplicative (signal-dependent) noise, which no kernel takes.
 """
 
 from __future__ import annotations
@@ -78,3 +78,45 @@ def backward(spec: LQGSpec, horizon: Optional[int] = None, eps: float = 1e-8,
             eps=eps, regularize=regularize)
     L, l, H = (torch.stack(x) for x in zip(*outs))
     return Gains(L=L, l=l, H=H)
+
+
+def backward_multiplicative(spec: LQGSpec, C: torch.Tensor,
+                            horizon: Optional[int] = None, eps: float = 1e-8,
+                            regularize: str = "jitter") -> Gains:
+    """Riccati backward pass with control-multiplicative (signal-dependent)
+    noise, after Todorov (2005) (port of
+    ``lqg_tpu.ops.riccati.backward_multiplicative``).
+
+    The dynamics carry the extra noise ``sum_i eps_i C_i u``, ``eps_i ~
+    N(0, 1)``, so the control Hessian gains a penalty:
+
+        H = R + B^T S B + sum_i C_i^T S C_i
+
+    Args:
+        spec: stationary spec (no time axis) with zero affine terms; leading
+            parameter-set axes allowed.
+        C: control-noise scales ``(..., k, n, m)``: ``k`` noise channels,
+            broadcasting against the spec's parameter-set axes.
+        horizon: number of steps.
+
+    Returns time-stacked :class:`Gains` with ``H`` the regularized Hessian.
+    """
+    if spec.A.dim() != spec.Qf.dim():
+        raise ValueError("backward_multiplicative expects a stationary spec")
+    if horizon is None:
+        raise ValueError("stationary spec requires explicit horizon")
+    A, B, Q, R, P = spec.A, spec.B, spec.Q, spec.R, spec.P
+    S = spec.Qf
+    outs = []
+    for _ in range(horizon):
+        SB = S @ B
+        # the control-dependent noise's penalty: sum_i C_i^T S C_i
+        CtSC = torch.einsum("...kni,...nm,...kmj->...ij", C, S, C)
+        H = symmetrize(R + mT(B) @ SB + CtSC)
+        G = P + mT(B) @ (S @ A)
+        Ht = regularize_spd(H, eps, regularize)
+        L = -cho_solve(cholesky(Ht), G)
+        S = symmetrize(Q + mT(A) @ (S @ A) + mT(G) @ L)
+        outs.append((L, Ht))
+    L, H = (torch.stack(x) for x in zip(*outs[::-1]))
+    return Gains(L=L, l=L.new_zeros(L.shape[:-1]), H=H)

@@ -6,7 +6,8 @@ computes gains and the data-free covariance recursion once per parameter
 set.  Dispatch between the hand-written kernels and the scans is explicit:
 ``method="auto"`` picks a kernel exactly where the JAX package picks its
 Pallas kernel on a TPU - a CUDA float32 tensor, a spec in the kernel's scope
-with ``zero_affine`` set - whether or not a gradient is needed: each
+with ``zero_affine`` set and, for the gains, no control-multiplicative
+noise - whether or not a gradient is needed: each
 kernel's ``torch.autograd.Function`` carries its backward kernel (K2, K4,
 K6).  For the likelihood that is the fused kernel where the joint dims fit
 it, else the blocked kernel (the delay-register models, joint dim 13 to
@@ -68,9 +69,14 @@ class System:
     """
 
     def __init__(self, actor: LQGSpec, dynamics: LQGSpec,
-                 horizon: Optional[int] = None):
+                 horizon: Optional[int] = None, control_noise=None):
         self.actor = actor
         self.dynamics = dynamics
+        # control-multiplicative (signal-dependent) noise channels
+        # ``([P,] k, n, m)``: extra dynamics noise sum_i eps_i C_i u (Todorov
+        # 2005); it changes the Riccati pass and the rollout, see
+        # riccati.backward_multiplicative
+        self.control_noise = control_noise
         if horizon is None:
             if not _stacked(dynamics):
                 raise ValueError("stationary specs require an explicit horizon")
@@ -122,7 +128,8 @@ class System:
     def _fused_ok(self, Sigma0: torch.Tensor) -> bool:
         """Does ``auto`` take the fused gains kernels (K1, K2)?"""
         a = self.actor
-        return (a.device.type == "cuda" and a.A.dim() <= 3
+        return (self.control_noise is None and a.device.type == "cuda"
+                and a.A.dim() <= 3
                 and a.dtype == torch.float32 and a.zero_affine
                 and Sigma0.dim() <= 3 and fused_gains_available(a))
 
@@ -147,9 +154,13 @@ class System:
         Args:
             method: ``"auto"`` (K1 where it applies, else the scans),
                 ``"fused"`` (K1; its plain version on the CPU) or
-                ``"scan"`` (:func:`riccati.backward` with ``"jitter"`` and
-                :func:`kalman.forward`).  ``"sqrt"`` and ``"steady"`` are
-                not ported yet.
+                ``"scan"`` (:func:`riccati.backward` with ``"jitter"``, or
+                :func:`riccati.backward_multiplicative` for a system with
+                ``control_noise``, and :func:`kalman.forward`).  ``"sqrt"``
+                and ``"steady"`` are not ported yet.  K1 has no
+                control-multiplicative noise, so ``"fused"`` raises for a
+                system with ``control_noise``, where ``lqg_tpu`` runs its
+                kernel without the noise.
 
         Returns ``(Gains, K)`` with time-leading ``L (T, m, n)``,
         ``l (T, m)``, ``H (T, m, m)`` and ``K (T, n, p)``, each with the
@@ -161,6 +172,11 @@ class System:
         if method == "auto":
             method = "fused" if self._fused_ok(Sigma0) else "scan"
         if method == "fused":
+            if self.control_noise is not None:
+                raise ValueError(
+                    "the fused gains kernel has no control-multiplicative "
+                    "noise; use method='scan' for a system with "
+                    "control_noise")
             one = self.actor.A.dim() == 2  # unbatched: a batch of one
             spec = LQGSpec(*(x[None] for x in self.actor.tensors()),
                            zero_affine=self.actor.zero_affine) if one \
@@ -173,7 +189,11 @@ class System:
             return riccati.Gains(L=L, l=l, H=H), K
         if method != "scan":
             raise ValueError(f"method must be auto|fused|scan, got {method!r}")
-        gains = riccati.backward(self.actor, horizon=self.horizon)
+        if self.control_noise is not None:
+            gains = riccati.backward_multiplicative(
+                self.actor, self.control_noise, horizon=self.horizon)
+        else:
+            gains = riccati.backward(self.actor, horizon=self.horizon)
         K = kalman.forward(self.actor, Sigma0=Sigma0, horizon=self.horizon)
         return gains, K
 
@@ -183,22 +203,30 @@ class System:
         """Simulate ``n`` closed-loop trials.
 
         Draws the process and observation noise from ``generator`` (on the
-        system's device) and runs :meth:`rollout`.  Returns ``(n, T+1,
-        xdim)`` states with ``x0`` prepended, or ``(x, x_hat, y, u)`` when
-        ``return_all``.
+        system's device), then the control noise ``(T, n, k)`` of a system
+        with ``control_noise``, and runs :meth:`rollout`.  Returns ``(n,
+        T+1, xdim)`` states with ``x0`` prepended, or ``(x, x_hat, y, u)``
+        when ``return_all``.
         """
         kw = dict(generator=generator, dtype=self.dtype, device=self.device)
         eps = torch.randn((self.horizon, n, self.dynamics.V.shape[-1]), **kw)
         eta = torch.randn((self.horizon, n, self.dynamics.W.shape[-1]), **kw)
-        return self.rollout(eps, eta, x0=x0, xhat0=xhat0, Sigma0=Sigma0,
-                            return_all=return_all)
+        eps_u = (None if self.control_noise is None else torch.randn(
+            (self.horizon, n, self.control_noise.shape[-3]), **kw))
+        return self.rollout(eps, eta, eps_u, x0=x0, xhat0=xhat0,
+                            Sigma0=Sigma0, return_all=return_all)
 
-    def rollout(self, eps, eta, x0=None, xhat0=None, Sigma0=None,
+    def rollout(self, eps, eta, eps_u=None, x0=None, xhat0=None, Sigma0=None,
                 return_all=False):
         """Closed-loop trials driven by given standard-normal noise:
         ``eps (T, n, k)`` for the process, ``eta (T, n, l)`` for the
-        observations (reference ``system.py:62-140``)."""
+        observations and, for a system with ``control_noise``, ``eps_u (T,
+        n, k_u)`` for its channels (reference ``system.py:62-140``)."""
         T, n = eps.shape[:2]
+        Cn = self.control_noise
+        if (Cn is None) != (eps_u is None):
+            raise ValueError("eps_u is needed exactly when the system has "
+                             "control_noise")
         if self.batch_shape:
             raise ValueError(
                 f"simulate takes an unbatched System; this one has "
@@ -223,6 +251,9 @@ class System:
             u = x_hat @ mT(gains.L[t]) + gains.l[t]
             # true dynamics
             x = x @ mT(Ad) + u @ mT(Bd) + eps[t] @ mT(Vd)
+            if Cn is not None:
+                # signal-dependent motor noise: sum_i eps_i C_i u
+                x = x + torch.einsum("nk,kim,nm->ni", eps_u[t], Cn, u)
             # observation
             y = x @ mT(Fd) + eta[t] @ mT(Wd)
             # belief update with the actor's internal model

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from lqg_tpu_torch import models
 from lqg_tpu_torch.models.basic import tracking_spec
 from lqg_tpu_torch.ops.kernels import gains as kg
 from lqg_tpu_torch.ops.linalg import mT
@@ -52,6 +53,28 @@ def _torch_spec(f, dtype, requires_grad=False):
     return spec, t
 
 
+# the models of the zoo's gains instances, (n, m, p): name, keyword
+# arguments and the action costs of three parameter sets
+ZOO_MODELS = {
+    (4, 1, 3): ("PointMassBoundedActor", {}, (0.01, 0.05, 0.3)),
+    (5, 1, 2): ("HandMotionModelTrackingTask", {}, (0.3, 1.0, 3.0)),
+    (4, 2, 2): ("RelativeObservationBoundedActor", {"dim": 2},
+                (0.1, 0.5, 2.0)),
+}
+
+
+def _model_fields(nmp):
+    """numpy fields of a zoo model's actor, three parameter sets, built in
+    float64 by the port."""
+    name, kw, costs = ZOO_MODELS[nmp]
+    actor = getattr(models, name)(
+        T=10, action_cost=torch.tensor(costs, dtype=torch.float64),
+        dtype=torch.float64, device="cpu", **kw).actor
+    return {k: getattr(actor, k).expand(
+        (len(costs),) + getattr(actor, k).shape[-2:]).numpy().copy()
+        for k in FIELDS}
+
+
 def _cotangents(seed, T, B, n, m, p):
     rng = np.random.default_rng(seed)
     return [0.3 * rng.normal(size=(T, B) + s) for s in ((m, n), (m, m),
@@ -77,6 +100,8 @@ def _serial_vjp(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar):
         Hinv = kg._sym_inv_det(H)[0]
         L = -(Hinv @ G)
         HL = H @ L
+        if Bm.shape[-1] > 1:  # K1 projects its Riccati carry at m > 1
+            Sb = 0.5 * (Sb + mT(Sb))
         Sbt = mT(Sb)
         LSb = L @ Sb
         Lb = Lbar[i] + (HL @ Sbt + (G @ Sbt + (G @ Sb + H @ LSb)))
@@ -136,14 +161,15 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,m,p,T", [(2, 1, 2, 12), (2, 1, 2, 7),
-                                     (2, 1, 1, 12)])
-def test_plain_adjoint_matches_pallas(n, m, p, T):
+def _against_pallas(f, T):
+    """The Function's backward (the plain K2) against the JAX package's
+    adjoint kernel in interpret mode, float32, on the numpy spec fields
+    ``f`` of three parameter sets and random cotangents."""
     import jax.numpy as jnp
     from lqg_tpu.ops.pallas.gains import _gains_adjoint_call
     from lqg_tpu.utils import stationary_spec as jstationary_spec
 
-    f = _random_spec(42 + T + p, n=n, m=m, p=p)
+    n, m, p = f["A"].shape[-1], f["B"].shape[-1], f["F"].shape[-2]
     cots = _cotangents(7, T, 3, n, m, p)
     jspec = jstationary_spec(**{k: jnp.asarray(f[k], jnp.float32)
                                 for k in "ABFVWQR"})
@@ -167,37 +193,77 @@ def test_plain_adjoint_matches_pallas(n, m, p, T):
         np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL, err_msg=name)
 
 
+@pytest.mark.parametrize("n,m,p,T", [(2, 1, 2, 12), (2, 1, 2, 7),
+                                     (2, 1, 1, 12)])
+def test_plain_adjoint_matches_pallas(n, m, p, T):
+    _against_pallas(_random_spec(42 + T + p, n=n, m=m, p=p), T)
+
+
+@pytest.mark.parametrize("nmp", sorted(ZOO_MODELS))
+def test_plain_adjoint_matches_pallas_zoo(nmp):
+    """The zoo's instances on the models' own specs: PointMass (4, 1, 3),
+    Hand (5, 1, 2) and RelativeObservation(dim=2) (4, 2, 2), where the
+    JAX kernel's carries need no projection to stay symmetric within
+    float32 over a short horizon (see ROADMAP's Queue 3)."""
+    _against_pallas(_model_fields(nmp), 12)
+
+
+def _against_autograd(case, T, B=3):
+    """The Function's backward (the plain K2) against autograd through the
+    plain K1, float64, on random cotangents: the K1 that autograd
+    differentiates projects its Riccati carry at m > 1, so this holds K2's
+    adjoint of that projection to a derivation it does not share."""
+    ins = [getattr(case, k).expand((B,) + getattr(case, k).shape[-2:])
+           .clone().requires_grad_() for k in FIELDS]
+    spec = case._replace(**dict(zip(FIELDS, ins)))
+    Sigma0 = (ins[6] @ mT(ins[6])).detach().requires_grad_()
+    n, m, p = ins[0].shape[-1], ins[1].shape[-1], ins[5].shape[-2]
+    cots = [torch.tensor(x) for x in _cotangents(5, T, B, n, m, p)]
+    leaves = ins + [Sigma0]
+    got = torch.autograd.grad(kg.fused_gains(spec, Sigma0, T), leaves, cots)
+    want = torch.autograd.grad(kg.fused_gains_reference(spec, Sigma0, T),
+                               leaves, cots)
+    for name, a, b in zip(FIELDS + ("Sigma0",), got, want):
+        if name in SYMMETRIC:
+            a, b = 0.5 * (a + mT(a)), 0.5 * (b + mT(b))
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9 * float(
+            b.abs().max()), msg=name)
+
+
 @pytest.mark.parametrize("T", [13, 240])
 def test_plain_adjoint_matches_autograd(T):
-    """The Function's backward (the plain K2) against autograd through the
-    plain K1, float64, on random cotangents; 240 steps reach the regime in
-    which an unprojected Kalman adjoint carry grows (see csrc/gains.cu)."""
-    f = _random_spec(3)
+    """Against autograd through the plain K1 (``_against_autograd``) on a
+    random (2, 1, 2) spec and the bounded actor's; 240 steps reach the
+    regime in which an unprojected Kalman adjoint carry grows (see
+    csrc/gains.cu)."""
     B = 3
     c, av, st, sc = (torch.tensor(v) for v in (np.logspace(-2, 1, B),
                                                np.linspace(0.1, 1.0, B),
                                                np.linspace(2.0, 40.0, B),
                                                np.linspace(0.5, 10.0, B)))
-    cases = [_torch_spec(f, torch.float64)[0],
-             tracking_spec(1, 1.0, av, st, sc, c, 1 / 60, device="cpu",
-                           dtype=torch.float64)]
-    for case in cases:
-        ins = [getattr(case, k).expand((B,) + getattr(case, k).shape[-2:])
-               .clone().requires_grad_() for k in FIELDS]
-        spec = case._replace(**dict(zip(FIELDS, ins)))
-        Sigma0 = (ins[6] @ mT(ins[6])).detach().requires_grad_()
-        n, m, p = ins[0].shape[-1], ins[1].shape[-1], ins[5].shape[-2]
-        cots = [torch.tensor(x) for x in _cotangents(5, T, B, n, m, p)]
-        leaves = ins + [Sigma0]
-        got = torch.autograd.grad(kg.fused_gains(spec, Sigma0, T), leaves,
-                                  cots)
-        want = torch.autograd.grad(kg.fused_gains_reference(spec, Sigma0, T),
-                                   leaves, cots)
-        for name, a, b in zip(FIELDS + ("Sigma0",), got, want):
-            if name in SYMMETRIC:
-                a, b = 0.5 * (a + mT(a)), 0.5 * (b + mT(b))
-            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-9 * float(
-                b.abs().max()), msg=name)
+    for case in (_torch_spec(_random_spec(3), torch.float64)[0],
+                 tracking_spec(1, 1.0, av, st, sc, c, 1 / 60, device="cpu",
+                               dtype=torch.float64)):
+        _against_autograd(case, T, B)
+
+
+@pytest.mark.parametrize("kind,nmp,T", [
+    (kind, nmp, T) for nmp in sorted(kg.INSTANCES) for T in (13, 65)
+    for kind in ("random",)] + [
+    ("model", nmp, T) for nmp in sorted(ZOO_MODELS) for T in (13, 240)])
+def test_plain_adjoint_matches_autograd_at_every_instance(kind, nmp, T):
+    """Every instance of K2 against autograd through the plain K1: a random
+    spec at each, the (4, 2, 2) one open-loop unstable, and the zoo
+    models' own specs (PointMass, Hand, RelativeObservation(dim=2)).  The
+    random specs stop at T=65: on them the float64 rounding of the gains
+    grows by about 10% a step, so that at (5, 1, 2), T=240, the two
+    adjoints differ by 3.8e-4 of the largest entry and a central difference
+    of the objective moves by 25% between steps 1e-4 and 1e-5: no adjoint
+    is an oracle there."""
+    n, m, p = nmp
+    f = (_random_spec(3, n=n, m=m, p=p) if kind == "random"
+         else _model_fields(nmp))
+    _against_autograd(_torch_spec(f, torch.float64)[0], T)
 
 
 def test_kalman_adjoint_step_needs_the_projection():
@@ -232,6 +298,41 @@ def test_kalman_adjoint_step_needs_the_projection():
 
     assert radius(project=False) > 1.05
     assert radius(project=True) < 1.0
+
+
+def test_riccati_carry_needs_the_projection_at_two_controls():
+    """Why K1 symmetrizes its Riccati carry at m > 1: the carry's
+    antisymmetric part reaches the 2 x 2 control Hessian, whose closed-form
+    inverse reads one off-diagonal entry, and on an open-loop unstable
+    random (4, 2, 2) spec it grows from float32 rounding until ``L`` is off
+    by more than 1 against float64 at T=65; projected each step (the plain
+    K1), ``L`` stays within 1e-4."""
+    f = _random_spec(4, B=5, n=4, m=2, p=2)
+
+    def riccati_L(dtype, project):
+        t = {k: torch.tensor(v, dtype=dtype) for k, v in f.items()}
+        A, Bm, Q, R = t["A"], t["B"], t["Q"], t["R"]
+        S, Ls = t["Qf"], []
+        for _ in range(65):
+            SA = S @ A
+            H = R + mT(Bm) @ (S @ Bm)
+            G = mT(Bm) @ SA
+            L = -(kg._sym_inv_det(H)[0] @ G)
+            S = (Q + mT(A) @ SA) + (mT(L) @ (H @ L)
+                                    + (mT(L) @ G + mT(G) @ L))
+            S = 0.5 * (S + mT(S)) if project else S
+            Ls.append(L)
+        return torch.stack(Ls)
+
+    exact = riccati_L(torch.float64, True)
+    assert float((riccati_L(torch.float32, False).double()
+                  - exact).abs().max()) > 1.0
+    VV = lambda t: t @ mT(t)
+    t32 = {k: torch.tensor(v, dtype=torch.float32) for k, v in f.items()}
+    L32 = kg._gains_reference(t32["A"], t32["B"], t32["Q"], t32["R"],
+                              t32["Qf"], t32["F"], VV(t32["V"]),
+                              VV(t32["W"]), VV(t32["V"]), 65)[0]
+    assert float((L32.flip(0).double() - exact).abs().max()) < 1e-4
 
 
 @pytest.mark.parametrize("T", [1, kg.CHUNK - 1, kg.CHUNK, kg.CHUNK + 1,

@@ -7,7 +7,8 @@ adjoint kernel in interpret mode, float32) and against autograd through the
 plain K3 (float64); the per-set plain K4 against the per-lane one it
 replaced (float64).  On a card (``-m cuda``): K3's stores and K4 against
 their plain versions, with one trial, with more trials than a block has
-trial threads and at (j, d) = (5, 2), and two K4 launches bit for bit.  JAX is imported inside the tests that use it, so
+trial threads and at every other instance, and two K4 launches bit for
+bit.  JAX is imported inside the tests that use it, so
 that the card's tests collect where JAX is not installed.
 """
 
@@ -16,7 +17,8 @@ import pytest
 import torch
 import torch.nn.functional as nnf
 
-from lqg_tpu_torch.models import BoundedActor, SubjectiveActor
+from lqg_tpu_torch.models import (BoundedActor, HandMotionModelTrackingTask,
+                                  PointMassBoundedActor, SubjectiveActor)
 from lqg_tpu_torch.ops.kernels import likelihood as kl
 from lqg_tpu_torch.ops.kernels.gains import _sym, _sym_inv_det
 from lqg_tpu_torch.ops.linalg import mT
@@ -50,20 +52,31 @@ def _inputs(P, n, T, seed=0):
     return np.stack(Fs), np.stack(Qs), X, rng.normal(size=(P, n))
 
 
-def _port_case(j, P, n, T, seed=0, device="cpu", dtype=torch.float64):
-    """F, Q of P port models of joint dim j (4: BoundedActor, 5:
-    SubjectiveActor) with spread parameters, n random-walk trials each and
+# the model of each instantiated (j, d): its joint dim j, d observed dims
+MODELS = {
+    (4, 2): BoundedActor,
+    (5, 2): SubjectiveActor,
+    (8, 2): PointMassBoundedActor,  # target and cursor positions
+    (8, 4): lambda **kw: BoundedActor(dim=2, **kw),
+    (10, 2): HandMotionModelTrackingTask,
+    (10, 4): lambda **kw: SubjectiveActor(dim=2, **kw),
+}
+ZOO = [(8, 2), (8, 4), (10, 2), (10, 4)]  # the model zoo's instances
+
+
+def _port_case(j, P, n, T, seed=0, device="cpu", dtype=torch.float64, d=2):
+    """F, Q of P port models of joint dim j and d observed dims
+    (:data:`MODELS`) with spread parameters, n random-walk trials each and
     a cotangent ``w (P, n)``, drawn with numpy."""
-    model = BoundedActor if j == 4 else SubjectiveActor
     Fs, Qs = [], []
     for k in range(P):
-        joint = model(T=T, sigma_target=3.0 + 2.0 * k,
-                      action_cost=0.5 + 0.3 * k, device=device,
-                      dtype=dtype)._joint()
+        joint = MODELS[(j, d)](T=T, sigma_target=3.0 + 2.0 * k,
+                               action_cost=0.5 + 0.3 * k, device=device,
+                               dtype=dtype)._joint()
         Fs.append(joint.F)
         Qs.append(joint.G @ mT(joint.G))
     rng = np.random.default_rng(seed)
-    X = np.cumsum(rng.normal(size=(P, n, T + 1, 2)), axis=2)
+    X = np.cumsum(rng.normal(size=(P, n, T + 1, d)), axis=2)
     as_t = lambda a: torch.tensor(a, dtype=dtype, device=device)
     return torch.stack(Fs), torch.stack(Qs), as_t(X), as_t(rng.normal(
         size=(P, n)))
@@ -131,6 +144,25 @@ def test_per_set_adjoint_matches_per_lane(j, n):
     _, Sig, mu = kl.conditioned_log_likelihood_reference(F, Q, X, stores=True)
     got = kl.conditioned_log_likelihood_vjp_reference(F, X, w, Sig, mu)
     want = _per_lane_vjp(F, X, w, Sig[:, None].expand(2, n, *Sig.shape[1:]),
+                         mu.permute(0, 3, 1, 2))
+    for name, a, b in zip("FQX", got, want):
+        assert a.shape == b.shape, name
+        if name == "Q":
+            a, b = _sym(a), _sym(b)
+        torch.testing.assert_close(a, b, rtol=1e-10,
+                                   atol=1e-10 * float(b.abs().max()), msg=name)
+
+
+@pytest.mark.parametrize("n", [1, 37])
+@pytest.mark.parametrize("jd", ZOO)
+def test_per_set_adjoint_matches_per_lane_zoo(jd, n):
+    """The model zoo's instances: PointMass (8, 2), BoundedActor(dim=2) (8,
+    4), Hand (10, 2), SubjectiveActor(dim=2) (10, 4)."""
+    (j, d), P = jd, 2
+    F, Q, X, w = _port_case(j, P=P, n=n, T=17, seed=2, d=d)
+    _, Sig, mu = kl.conditioned_log_likelihood_reference(F, Q, X, stores=True)
+    got = kl.conditioned_log_likelihood_vjp_reference(F, X, w, Sig, mu)
+    want = _per_lane_vjp(F, X, w, Sig[:, None].expand(P, n, *Sig.shape[1:]),
                          mu.permute(0, 3, 1, 2))
     for name, a, b in zip("FQX", got, want):
         assert a.shape == b.shape, name
@@ -262,3 +294,26 @@ def test_adjoint_kernel_variants_on_card(cuda, j, n):
         torch.testing.assert_close(a, c, rtol=tol["rtol"],
                                    atol=tol["atol"] + 1e-5 * float(
                                        c.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jd", ZOO)
+def test_adjoint_kernel_zoo_instances_on_card(cuda, jd):
+    """The zoo's instances at the fit's shape, 24 sets x 20 trials at T=1008
+    (K4's step sums: up to 157 values, five rounds of a warp), and at 3 sets
+    x 300 trials: K4 against its plain version, two launches bit for
+    bit."""
+    j, d = jd
+    for P, n, T in ((24, 20, 1008), (3, 300, 120)):
+        F, Q, X, w = _port_case(j, P=P, n=n, T=T, seed=3, d=d, device=cuda,
+                                dtype=torch.float32)
+        _, *st = kl.ll_fwd(F, Q, X, stores=True)
+        got = kl.conditioned_log_likelihood_vjp(F, X, w, *st)
+        again = kl.conditioned_log_likelihood_vjp(F, X, w, *st)
+        want = kl.conditioned_log_likelihood_vjp_reference(F, X, w, *st)
+        torch.cuda.synchronize()
+        for a, b, c, tol in zip(got, again, want, (FQ_TOL, FQ_TOL, X_TOL)):
+            assert torch.equal(a, b)
+            torch.testing.assert_close(a, c, rtol=tol["rtol"],
+                                       atol=tol["atol"] + 1e-5 * float(
+                                           c.abs().max()))

@@ -5,7 +5,7 @@ kernel in interpret mode (float32) and against the per-lane formulation
 (every trial running the covariance recursion itself, float64), and the
 wrapper's checks.  On a card (``-m cuda``): the CUDA kernel against the
 plain version, with one trial, with more trials than a block has trial
-threads, and at (j, d) = (5, 2).  JAX is imported
+threads, and at every other instance.  JAX is imported
 inside the tests that use it, so that the card's tests collect where JAX
 is not installed.
 """
@@ -16,7 +16,8 @@ import torch
 
 import torch.nn.functional as nnf
 
-from lqg_tpu_torch.models import BoundedActor, SubjectiveActor
+from lqg_tpu_torch.models import (BoundedActor, HandMotionModelTrackingTask,
+                                  PointMassBoundedActor, SubjectiveActor)
 from lqg_tpu_torch.ops.kernels.gains import _sym, _sym_inv_det
 from lqg_tpu_torch.ops.kernels.likelihood import (
     _LOG_2PI, _neumaier_add, conditioned_log_likelihood_fused,
@@ -26,6 +27,11 @@ from lqg_tpu_torch.ops import gaussian
 from lqg_tpu_torch.ops.linalg import mT
 
 RTOL, ATOL = 2e-4, 2e-3  # as tests/test_pallas.py holds the Pallas kernel
+# the stores at the zoo's instances: each entry also STORE_SCALE x the
+# largest |plain| of its row, one state over every set, step and column
+# (the point mass's hidden-state means reach ~1e4 on random walks and keep
+# float32 rounding of that scale; chip_smoke.py's K3_STORE_SCALE)
+STORE_SCALE = 1e-3
 
 
 def _inputs(P, n, T, seed=0):
@@ -46,19 +52,30 @@ def _inputs(P, n, T, seed=0):
     return np.stack(Fs), np.stack(Qs), X
 
 
-def _port_case(j, P, n, T, seed=0, device="cpu", dtype=torch.float64):
-    """F, Q of P port models of joint dim j (4: BoundedActor, 5:
-    SubjectiveActor) with spread parameters, and n random-walk trials
+# the model of each instantiated (j, d): its joint dim j, d observed dims
+MODELS = {
+    (4, 2): BoundedActor,
+    (5, 2): SubjectiveActor,
+    (8, 2): PointMassBoundedActor,  # target and cursor positions
+    (8, 4): lambda **kw: BoundedActor(dim=2, **kw),
+    (10, 2): HandMotionModelTrackingTask,
+    (10, 4): lambda **kw: SubjectiveActor(dim=2, **kw),
+}
+ZOO = [(8, 2), (8, 4), (10, 2), (10, 4)]  # the model zoo's instances
+
+
+def _port_case(j, P, n, T, seed=0, device="cpu", dtype=torch.float64, d=2):
+    """F, Q of P port models of joint dim j and d observed dims
+    (:data:`MODELS`) with spread parameters, and n random-walk trials
     each, drawn with numpy."""
-    model = BoundedActor if j == 4 else SubjectiveActor
     Fs, Qs = [], []
     for k in range(P):
-        joint = model(T=T, sigma_target=3.0 + 2.0 * k,
-                      action_cost=0.5 + 0.3 * k, device=device,
-                      dtype=dtype)._joint()
+        joint = MODELS[(j, d)](T=T, sigma_target=3.0 + 2.0 * k,
+                               action_cost=0.5 + 0.3 * k, device=device,
+                               dtype=dtype)._joint()
         Fs.append(joint.F)
         Qs.append(joint.G @ mT(joint.G))
-    X = np.cumsum(np.random.default_rng(seed).normal(size=(P, n, T + 1, 2)),
+    X = np.cumsum(np.random.default_rng(seed).normal(size=(P, n, T + 1, d)),
                   axis=2)
     return (torch.stack(Fs), torch.stack(Qs),
             torch.tensor(X, dtype=dtype, device=device))
@@ -121,6 +138,24 @@ def test_reference_matches_per_lane(j, n):
                                    atol=1e-12 * float(b.abs().max()))
 
 
+@pytest.mark.parametrize("n", [1, 37])
+@pytest.mark.parametrize("jd", ZOO)
+def test_reference_matches_per_lane_zoo(jd, n):
+    """The model zoo's instances: PointMass (8, 2), BoundedActor(dim=2) (8,
+    4), Hand (10, 2), SubjectiveActor(dim=2) (10, 4)."""
+    (j, d), P, T = jd, 2, 17
+    F, Q, X = _port_case(j, P=P, n=n, T=T, d=d)
+    assert fused_ll_available(j, d, torch.float32)
+    ll, Sig, mu = conditioned_log_likelihood_reference(F, Q, X, stores=True)
+    ll_l, Sig_l, mu_l = _per_lane_reference(F, Q, X)
+    assert Sig.shape == (P, T + 1, j, j) and mu.shape == (P, T + 1, j, n)
+    torch.testing.assert_close(ll, ll_l, rtol=1e-12, atol=0)
+    for a, b in ((Sig[:, None].expand_as(Sig_l), Sig_l),
+                 (mu.permute(0, 3, 1, 2), mu_l)):
+        torch.testing.assert_close(a, b, rtol=1e-12,
+                                   atol=1e-12 * float(b.abs().max()))
+
+
 def test_trial_threads():
     assert [trial_threads(n) for n in (1, 20, 32, 33, 128, 129, 300)] == [
         32, 32, 32, 64, 128, 128, 128]
@@ -156,7 +191,7 @@ def test_wrapper_on_cpu_is_the_reference():
     assert conditioned_log_likelihood_fused.launches == before
     assert fused_ll_available(4, 2, torch.float32)
     assert not fused_ll_available(4, 2, torch.float64)
-    assert not fused_ll_available(8, 4, torch.float32)
+    assert not fused_ll_available(6, 2, torch.float32)  # no instance
 
 
 def test_wrapper_checks():
@@ -215,3 +250,28 @@ def test_kernel_variants_match_reference_on_card(cuda, j, n):
     assert torch.equal(ll, got[0])
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jd", ZOO)
+def test_kernel_zoo_instances_match_reference_on_card(cuda, jd):
+    """The zoo's instances at the fit's shape, 24 sets x 20 trials at T=1008
+    (j^2 > 32: the covariance warp takes several element rounds a step),
+    and at 3 sets x 300 trials (three a thread): both variants of K3 and the
+    stores against the plain version."""
+    j, d = jd
+    for P, n, T in ((24, 20, 1008), (3, 300, 120)):
+        F, Q, X = _port_case(j, P=P, n=n, T=T, d=d, device=cuda,
+                             dtype=torch.float32)
+        ll = ll_fwd(F, Q, X)
+        got = ll_fwd(F, Q, X, stores=True)
+        want = conditioned_log_likelihood_reference(F, Q, X, stores=True)
+        torch.cuda.synchronize()
+        assert torch.equal(ll, got[0])
+        torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+        for a, b in zip(got[1:], want[1:]):
+            row = b.abs().amax(dim=(0, 1, 3), keepdim=True)
+            err = (a - b).abs()
+            assert bool((err <= ATOL + RTOL * b.abs()
+                         + STORE_SCALE * row).all()), float(
+                (err.amax(dim=(0, 1, 3), keepdim=True) / row).max())

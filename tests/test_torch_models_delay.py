@@ -253,8 +253,9 @@ def test_auto_resolves_as_jax_rule(monkeypatch):
     models = [
         (tmodels.SubjectiveActor(T=8, **f32), 2, "fused"),  # j = 5
         (tmodels.DelayedSubjectiveActor(T=8, **f32), 2, "blocked"),  # j = 65
-        # j = 10 with d = 4: in neither kernel's scope
-        (tmodels.SubjectiveActor(T=8, dim=2, **f32), 4, None),
+        (tmodels.SubjectiveActor(T=8, dim=2, **f32), 4, "fused"),  # (10, 4)
+        # j = 12 with d = 6: in neither kernel's scope
+        (tmodels.BoundedActor(T=8, dim=3, **f32), 6, None),
     ]
     data = [m.simulate(torch.Generator().manual_seed(0), n=2)[..., :d]
             for m, d, _ in models]

@@ -530,6 +530,258 @@ def kernel_counts(fn, names):
     return {k: sum(k in n for _, _, n in spans) for k in names}
 
 
+# K1's two designs: the instances and the batches of the
+# crossover sweep (the table in ops/kernels/gains.py:THREAD_FROM), and the
+# shapes at which both designs are timed beside their bounds: (2, 1, 2) at
+# the forward path's B=1, the NUTS recovery's B=4 (4 chains, T=720), the
+# potential's B=24, the zoo's B=2,048 and bench.py's B=16,384
+K1_INSTANCES = ((2, 1, 2), (2, 1, 1), (3, 1, 2), (4, 1, 3), (5, 1, 2),
+                (4, 2, 2))
+K1_SWEEP_B, K1_SWEEP_T = (1, 4, 24, 132, 264, 528, 1056, 2048, 16384), 1000
+K1_SHAPES = {(2, 1, 2): ((1, 1000), (4, 720), (24, 1008), (2048, 719),
+                         (16384, 1000))}
+K1_ZOO_SHAPES = ((24, 1008), (2048, 719))
+K1_BITS_B, K1_BITS_T = (1, 4, 24, 33), (1, 37, 1008)
+# the chain bound's latencies, estimated for Hopper: a dependent fp32 add,
+# multiply or fused multiply-add, and __frcp_rn (MUFU.RCP, two Newton FMAs
+# and the fix-up test)
+FP_CYCLES, RCP_CYCLES = 4, 30
+
+
+def k1_inputs(nmp, B, T_, dev):
+    """The actor spec of B parameter sets of instance ``nmp``'s model, its
+    parameters spread over the batch (bench.py's sweep at (2, 1, 2)), and
+    K1's nine inputs from it, each ``(B, ., .)``."""
+    from lqg_tpu_torch import models
+    from lqg_tpu_torch.models.basic import tracking_spec
+    from lqg_tpu_torch.ops.linalg import mT
+
+    def spread(lo, hi, log_=False):
+        v = np.logspace(lo, hi, B) if log_ else np.linspace(lo, hi, B)
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    if nmp == (2, 1, 2):
+        sp = tracking_spec(1, 1.0, spread(0.1, 1.0), spread(2.0, 40.0),
+                           spread(0.5, 10.0), spread(-2.0, 1.0, True),
+                           1.0 / 60.0, device=dev)
+    elif nmp == (2, 1, 1):
+        sp = models.RelativeObservationBoundedActor(
+            T=T_, action_cost=spread(-2.0, 1.0, True),
+            sigma=spread(2.0, 40.0), device=dev).actor
+    elif nmp == (3, 1, 2):
+        sp = models.SubjectiveActor(
+            T=T_, action_cost=spread(-2.0, 1.0, True),
+            subj_vel_noise=spread(0.3, 4.0), device=dev).actor
+    elif nmp == (4, 1, 3):
+        sp = models.PointMassBoundedActor(
+            T=T_, action_cost=spread(-2.5, -0.5, True),
+            action_variability=spread(5e-4, 5e-3),
+            sigma_target=spread(2.0, 40.0), device=dev).actor
+    elif nmp == (5, 1, 2):
+        sp = models.HandMotionModelTrackingTask(
+            T=T_, action_cost=spread(-1.0, 1.0, True),
+            action_variability=spread(0.1, 1.0),
+            sigma_target=spread(2.0, 40.0), device=dev).actor
+    else:
+        sp = models.RelativeObservationBoundedActor(
+            dim=2, T=T_, action_cost=spread(-2.0, 1.0, True),
+            action_variability=spread(0.1, 1.0), sigma=spread(2.0, 40.0),
+            device=dev).actor
+    VV = sp.V @ mT(sp.V)
+    return sp, [x.expand((B,) + x.shape[-2:]).contiguous() for x in (
+        sp.A, sp.B, sp.Q, sp.R, sp.Qf, sp.F, VV, sp.W @ mT(sp.W), VV)]
+
+
+def k1_chain_cycles(n, m, p):
+    """The critical path of one K1 step in cycles, (Riccati, Kalman): the
+    depth of the step's operation graph from the carry to the next carry,
+    in K1's order (csrc/rn_algebra.cuh), each dependent operation
+    ``FP_CYCLES`` and a reciprocal ``RCP_CYCLES``; loads, exchanges and
+    stores not counted.  A design can overlap the two recursions, not the
+    steps of one."""
+    fp = FP_CYCLES
+
+    def dot_depth(a, b):  # acc = a0 b0, then acc = fma(a_t, b_t, acc)
+        acc = max(a[0], b[0]) + fp
+        for x, y in zip(a[1:], b[1:]):
+            acc = max(x, y, acc) + fp
+        return acc
+
+    def mm(a, b):
+        cols = list(zip(*b))
+        return [[dot_depth(row, col) for col in cols] for row in a]
+
+    def tr(a):
+        return [list(r) for r in zip(*a)]
+
+    def ew(a, b):  # an elementwise add or subtract
+        return [[max(x, y) + fp for x, y in zip(ra, rb)]
+                for ra, rb in zip(a, b)]
+
+    def inv(a, k):  # sym_inv<k>: determinant, + eps, reciprocal, product
+        det = max(max(r) for r in a) + fp * {1: 0, 2: 2, 3: 5}[k]
+        out = det + fp + RCP_CYCLES + fp
+        return [[out] * k for _ in range(k)]
+
+    z = lambda r, c: [[0] * c for _ in range(r)]
+    A, Bm, Q, R, F, VV, WW = (z(n, n), z(n, m), z(n, n), z(m, m), z(p, n),
+                              z(n, n), z(p, p))
+    S = z(n, n)
+    SB, SA = mm(S, Bm), mm(S, A)
+    H = ew(R, mm(tr(Bm), SB))
+    G = mm(tr(Bm), SA)
+    L = mm(inv(H, m), G)
+    HL = mm(H, L)
+    X = ew(ew(Q, mm(tr(A), SA)), ew(mm(tr(L), HL),
+                                     ew(mm(tr(L), G), mm(tr(G), L))))
+    if m > 1:
+        X = [[x + 2 * fp for x in r] for r in X]
+    Pc = z(n, n)
+    Pp = ew(mm(A, mm(Pc, tr(A))), VV)
+    PFt = mm(Pp, tr(F))
+    K = mm(PFt, inv(ew(mm(F, PFt), WW), p))
+    Pn = ew(Pp, mm(K, tr(PFt)))
+    return max(map(max, X)), max(map(max, Pn))
+
+
+def sm_clock_mhz():
+    """The card's maximum SM clock (MHz), from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def k1_bounds(nmp, B, T_, stores, mhz):
+    """K1's byte-or-operation bound (ms, by) at B particles and T_ steps,
+    the stores' bytes counted where taken, and its chain bound (ms): the
+    longer recursion's critical path x T_ at the SM clock."""
+    n, m, p = nmp
+    nbytes, ops = gains_work(B, n, m, p, T_)
+    if stores:
+        nbytes += 2 * T_ * B * n * n * 4
+    chain = max(k1_chain_cycles(n, m, p)) * T_ / (mhz * 1e3)
+    return (*bound((nbytes, ops)), chain)
+
+
+def k1_designs_bits(dev, card, instances):
+    """K1's block design against its thread design, bit for bit, at each of
+    ``instances``, B in K1_BITS_B and T in K1_BITS_T, store-free and with
+    the stores; and K2 fed the block design's stores against K2 fed the
+    thread design's, at B=24, T=1008.  Raises on any difference; returns
+    the number of cases."""
+    from lqg_tpu_torch.ops.kernels.gains import fused_gains_vjp, gains_fwd
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    checked = 0
+    for nmp in instances:
+        for B in K1_BITS_B:
+            for T_ in K1_BITS_T:
+                ins = k1_inputs(nmp, B, T_, dev)[1]
+                for stores in (False, True):
+                    th = gains_fwd(*ins, T_, stores=stores, design="thread")
+                    bl = gains_fwd(*ins, T_, stores=stores, design="block")
+                    torch.cuda.synchronize()
+                    require(all(bool(torch.isfinite(a).all()) for a in th),
+                            f"K1 {nmp} B={B} T={T_}: not finite")
+                    diff = [i for i, (a, b) in enumerate(zip(th, bl))
+                            if not torch.equal(a, b)]
+                    errs = [float((th[i] - bl[i]).abs().max()) for i in diff]
+                    require(not diff, f"K1 {nmp} B={B} T={T_} stores="
+                            f"{stores}: block vs thread differ in outputs "
+                            f"{diff}, max abs {errs}")
+                    checked += 1
+        ins = k1_inputs(nmp, CHAINS * CONDITIONS, T_FIT, dev)[1]
+        th = gains_fwd(*ins, T_FIT, stores=True, design="thread")
+        bl = gains_fwd(*ins, T_FIT, stores=True, design="block")
+        cots = [0.3 * torch.randn(x.shape, generator=g, device=dev)
+                for x in th[:3]]
+        A_, Bm_, _, R_, _, F_, VV_, WW_, _ = ins
+        k2_th = fused_gains_vjp(A_, Bm_, R_, F_, VV_, WW_, *th[3:], *cots)
+        k2_bl = fused_gains_vjp(A_, Bm_, R_, F_, VV_, WW_, *bl[3:], *cots)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(k2_th, k2_bl)),
+                f"K2 {nmp}: fed the block design's stores, not the thread "
+                f"design's bits")
+    log(f"[{card}] K1 block design vs thread design: the same bits in "
+        f"{checked} cases (instances {list(instances)}, B in "
+        f"{list(K1_BITS_B)}, T in {list(K1_BITS_T)}, store-free and with the "
+        f"stores); K2 fed either design's stores the same bits at B="
+        f"{CHAINS * CONDITIONS}, T={T_FIT}, every instance")
+    return checked
+
+
+def k1_crossover(dev, card, layouts=None):
+    """Both K1 designs timed in turns (paired_ms) at every instance and B
+    in K1_SWEEP_B, T=K1_SWEEP_T, store-free and with the stores, beside
+    ``design="auto"``'s pick.  ``layouts`` ({instance: launching function})
+    replaces the block design by another launch (scripts/k1_designs.py).
+    Returns {(instance, B, stores): (thread ms, block ms, auto's pick)}."""
+    from lqg_tpu_torch.ops.kernels.gains import design_for, gains_fwd
+
+    out = {}
+    for nmp in K1_INSTANCES:
+        for B in K1_SWEEP_B:
+            ins = k1_inputs(nmp, B, K1_SWEEP_T, dev)[1]
+            block = (layouts or {}).get(nmp)
+            for stores in (False, True):
+                t_th, t_bl = paired_ms(
+                    lambda: gains_fwd(*ins, K1_SWEEP_T, stores=stores,
+                                      design="thread"),
+                    (lambda: block(ins, K1_SWEEP_T, stores)) if block else
+                    (lambda: gains_fwd(*ins, K1_SWEEP_T, stores=stores,
+                                       design="block")))
+                out[(nmp, B, stores)] = (t_th, t_bl,
+                                         design_for(*nmp, B, stores))
+        log(f"[{card}] K1 crossover {nmp} T={K1_SWEEP_T}, thread / block ms "
+            f"(store-free; with the stores) and auto's pick: " + "; ".join(
+                f"B={B} {out[(nmp, B, False)][0]:.4f} / "
+                f"{out[(nmp, B, False)][1]:.4f} -> {out[(nmp, B, False)][2]}"
+                f", {out[(nmp, B, True)][0]:.4f} / "
+                f"{out[(nmp, B, True)][1]:.4f} -> {out[(nmp, B, True)][2]}"
+                for B in K1_SWEEP_B))
+    return out
+
+
+def k1_times(dev, card, mhz):
+    """Both K1 designs and both variants timed in turns through gains_fwd
+    at K1_SHAPES / K1_ZOO_SHAPES, beside the byte bound and the chain
+    bound.  Returns {shape: {...}}."""
+    from lqg_tpu_torch.ops.kernels.gains import design_for, gains_fwd
+
+    out = {}
+    for nmp in K1_INSTANCES:
+        for B, T_ in K1_SHAPES.get(nmp, K1_ZOO_SHAPES):
+            ins = k1_inputs(nmp, B, T_, dev)[1]
+            row = {"auto": [design_for(*nmp, B, st) for st in (False, True)]}
+            for stores in (False, True):
+                t_th, t_bl = paired_ms(
+                    lambda: gains_fwd(*ins, T_, stores=stores,
+                                      design="thread"),
+                    lambda: gains_fwd(*ins, T_, stores=stores,
+                                      design="block"))
+                b_ms, b_by, chain = k1_bounds(nmp, B, T_, stores, mhz)
+                key = "stores" if stores else "free"
+                row[key] = {"thread_ms": t_th, "block_ms": t_bl,
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "chain_ms": chain}
+            shape = f"{nmp} B={B} T={T_}"
+            out[shape] = row
+            log(f"[{card}] K1 {shape}: store-free thread "
+                f"{row['free']['thread_ms']:.4f} / block "
+                f"{row['free']['block_ms']:.4f} ms, with the stores "
+                f"{row['stores']['thread_ms']:.4f} / "
+                f"{row['stores']['block_ms']:.4f} ms; bound "
+                f"{row['free']['bound_ms']:.6f} / "
+                f"{row['stores']['bound_ms']:.6f}"
+                f" ms ({row['free']['bound_by']}), chain bound "
+                f"{row['free']['chain_ms']:.4f} ms "
+                f"({max(k1_chain_cycles(*nmp))} cycles a step at {mhz:.0f} "
+                f"MHz); auto (store-free, stores): {row['auto']}")
+    return out
+
+
 def zoo_paths(dev, card, names, all_counters, all_names):
     """Phase 15: PointMassBoundedActor, HandMotionModelTrackingTask and
     SignalDependentNoiseActor through the entry points at full width.
@@ -727,31 +979,10 @@ def zoo_instances(dev, card):
     g = torch.Generator(device=dev).manual_seed(17)
     out = {k: {} for k in ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd")}
 
-    def spread(lo, hi, B, log_=False):
-        v = np.logspace(lo, hi, B) if log_ else np.linspace(lo, hi, B)
-        return torch.tensor(v, dtype=torch.float32, device=dev)
-
-    gains_models = {
-        (4, 1, 3): lambda B, T_: models.PointMassBoundedActor(
-            T=T_, action_cost=spread(-2.5, -0.5, B, True),
-            action_variability=spread(5e-4, 5e-3, B),
-            sigma_target=spread(2.0, 40.0, B), device=dev),
-        (5, 1, 2): lambda B, T_: models.HandMotionModelTrackingTask(
-            T=T_, action_cost=spread(-1.0, 1.0, B, True),
-            action_variability=spread(0.1, 1.0, B),
-            sigma_target=spread(2.0, 40.0, B), device=dev),
-        (4, 2, 2): lambda B, T_: models.RelativeObservationBoundedActor(
-            dim=2, T=T_, action_cost=spread(-2.0, 1.0, B, True),
-            action_variability=spread(0.1, 1.0, B),
-            sigma=spread(2.0, 40.0, B), device=dev),
-    }
-    for (n, m, p), make in gains_models.items():
+    for n, m, p in K1_INSTANCES[3:]:
         for B, T_ in ((CHAINS * CONDITIONS, T_FIT), (2048, 719)):
-            sp = make(B, T_).actor
-            VV = sp.V @ mT(sp.V)
-            ins = [x.expand((B,) + x.shape[-2:]).contiguous() for x in (
-                sp.A, sp.B, sp.Q, sp.R, sp.Qf, sp.F, VV, sp.W @ mT(sp.W), VV)]
-            res = gains_fwd(*ins, T_, stores=True)
+            sp, ins = k1_inputs((n, m, p), B, T_, dev)
+            res = gains_fwd(*ins, T_, stores=True, design="thread")
             ref = fused_gains_reference(sp, ins[-1], T_, stores=True)
             torch.cuda.synchronize()
             e1 = max(float((a - b).abs().max()) for a, b in zip(res[:3],
@@ -784,7 +1015,7 @@ def zoo_instances(dev, card):
                             for a, b in zip(got, want)),
                     f"K2 ({n}, {m}, {p}) B={B} vs plain: {e2}")
             shape = f"({n}, {m}, {p}) B={B} T={T_}"
-            k1_ms = cuda_ms(lambda: gains_fwd(*ins, T_))
+            k1_ms = cuda_ms(lambda: gains_fwd(*ins, T_, design="thread"))
             k2_ms = cuda_ms(lambda: fused_gains_vjp(*args))
             plain = ((cuda_ms(lambda: fused_gains_reference(sp, ins[-1], T_),
                               runs=1, launches=1),
@@ -795,7 +1026,8 @@ def zoo_instances(dev, card):
             b2 = bound(gains_bwd_work(B, n, m, p, T_))
             out["gains_fwd"][shape] = (k1_ms, *b1, e1, plain[0])
             out["gains_bwd"][shape] = (k2_ms, *b2, e2, plain[1])
-            log(f"[{card}] K1 {shape}: {k1_ms:.4f} ms (bound {b1[0]:.6f}, "
+            log(f"[{card}] K1 (thread design) {shape}: {k1_ms:.4f} ms (bound "
+                f"{b1[0]:.6f}, "
                 f"{b1[1]}), max abs err vs plain {e1:.3e} (atol "
                 f"{ZOO_GAINS_ATOL}), stores {st_err:.3e}; K2 {k2_ms:.4f} ms "
                 f"(bound {b2[0]:.6f}, {b2[1]}), two launches the same bits, "
@@ -908,7 +1140,6 @@ def main() -> int:
     from lqg_tpu_torch.infer.hmc import draw_nuts, nuts_step
     from lqg_tpu_torch.models import (BoundedActor, DelayedSubjectiveActor,
                                       SubjectiveActor, TemporalDelayModel)
-    from lqg_tpu_torch.models.basic import tracking_spec
     from lqg_tpu_torch.ops.kernels import nvcc
     from lqg_tpu_torch.ops.kernels.gains import (fused_gains,
                                                  fused_gains_reference,
@@ -956,21 +1187,30 @@ def main() -> int:
 
     # 3. K1 against its plain version, bench.py's sweep
     B = GAINS_BATCH
-    sweep = [torch.tensor(v, dtype=torch.float32) for v in (
-        np.logspace(-2, 1, B), np.linspace(0.1, 1.0, B),
-        np.linspace(2.0, 40.0, B), np.linspace(0.5, 10.0, B))]
-    c, av, st, sc = (v.to(dev) for v in sweep)
-    spec = tracking_spec(1, 1.0, av, st, sc, c, 1.0 / 60.0, device=dev)
-    S0 = spec.V @ mT(spec.V)
+    spec, k1_ins = k1_inputs((2, 1, 2), B, T, dev)
+    S0 = k1_ins[-1]
+    # a gains sweep through the entry point a user calls, its launches
+    # counted by design: auto takes the thread design at this batch
+    fused_gains.launches = 0
+    fused_gains.design_launches = {"thread": 0, "block": 0}
     out = fused_gains(spec, S0, T)
+    torch.cuda.synchronize()
+    sweep_launches = dict(fused_gains.design_launches)
     ref = fused_gains_reference(spec, S0, T)
     torch.cuda.synchronize()
     k1_err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
     require(all(bool(torch.isfinite(a).all()) for a in out), "K1 not finite")
     require(k1_err <= GAINS_ATOL, f"K1 vs plain: {k1_err} > {GAINS_ATOL}")
-    log(f"K1 vs plain at B={B}, T={T}: max abs err {k1_err:.3e} "
-        f"(atol {GAINS_ATOL})")
+    require(sweep_launches == {"thread": 1, "block": 0},
+            f"gains sweep: K1's thread design once, got {sweep_launches}")
+    log(f"K1 vs plain at B={B}, T={T} through fused_gains: max abs err "
+        f"{k1_err:.3e} (atol {GAINS_ATOL}); launches by design "
+        f"{sweep_launches}")
     del out, ref
+    # K1's block design against its thread design, bit for bit, at the
+    # instances of the bounded actor, the relative-observation actor and
+    # the subjective actor's internal model (the zoo's in phase 16)
+    k1_bits = k1_designs_bits(dev, card, K1_INSTANCES[:3])
 
     # 4. K3 against its plain version: 6 conditions x 4 chains
     g = torch.Generator(device=dev).manual_seed(0)
@@ -994,6 +1234,7 @@ def main() -> int:
 
     # 5. the main path, through the entry points a user calls
     fused_gains.launches = 0
+    fused_gains.design_launches = {"thread": 0, "block": 0}
     conditioned_log_likelihood_fused.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1003,8 +1244,11 @@ def main() -> int:
     ll_main = model.log_likelihood(x, method="auto")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"gains_fwd": fused_gains.launches,
+    launches = {"gains_fwd_block": fused_gains.design_launches["block"],
                 "ll_fwd": conditioned_log_likelihood_fused.launches}
+    require(fused_gains.launches == launches["gains_fwd_block"],
+            f"main path: K1 in its thread design at one parameter set, "
+            f"{fused_gains.design_launches}")
     log(f"main path: simulate(n={LL_TRIALS}) + log_likelihood at T={T} in "
         f"{main_s:.3f} s (first call, host clock); launches {launches}")
     require(all(v > 0 for v in launches.values()),
@@ -1061,18 +1305,6 @@ def main() -> int:
         f"err {golden_err:.3e}")
 
     # 6. K1's stores and K2, K3's stores and K4, against their plain versions
-    def sweep_spec(B):
-        c, av, st, sc = (torch.tensor(v, dtype=torch.float32, device=dev)
-                         for v in (np.logspace(-2, 1, B),
-                                   np.linspace(0.1, 1.0, B),
-                                   np.linspace(2.0, 40.0, B),
-                                   np.linspace(0.5, 10.0, B)))
-        sp = tracking_spec(1, 1.0, av, st, sc, c, 1.0 / 60.0, device=dev)
-        VV = sp.V @ mT(sp.V)
-        ins = [x.expand((B,) + x.shape[-2:]).contiguous() for x in (
-            sp.A, sp.B, sp.Q, sp.R, sp.Qf, sp.F, VV, sp.W @ mT(sp.W), VV)]
-        return sp, ins
-
     def rel_err(a, b):
         """max |a - b| over max |b|, per output."""
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -1080,7 +1312,7 @@ def main() -> int:
     g2 = torch.Generator(device=dev).manual_seed(2)
     k2_err, k2_inputs, k2_large = 0.0, None, None
     for B2, T2 in ((CHAINS * CONDITIONS, T_FIT), (2048, 719)):
-        sp, ins = sweep_spec(B2)
+        sp, ins = k1_inputs((2, 1, 2), B2, T2, dev)
         out = gains_fwd(*ins, T2, stores=True)
         ref = fused_gains_reference(sp, ins[-1], T2, stores=True)
         torch.cuda.synchronize()
@@ -1089,6 +1321,18 @@ def main() -> int:
         require(all(within(a, b, K2_RTOL, K2_ATOL)
                     for a, b in zip(out[3:], ref[3:])),
                 f"K1 stores vs plain carries at B={B2}: {st_err}")
+        if B2 == CHAINS * CONDITIONS:  # the block design at the potential's
+            blk = gains_fwd(*ins, T2, stores=True, design="block")
+            torch.cuda.synchronize()
+            k1_block_err = max(float((a - b).abs().max())
+                               for a, b in zip(blk[:3], ref[:3]))
+            require(k1_block_err <= GAINS_ATOL,
+                    f"K1 block design vs plain at B={B2}: {k1_block_err}")
+            k1_block_plain = cuda_ms(lambda: fused_gains_reference(
+                sp, ins[-1], T2, stores=True), runs=1, launches=1)
+            log(f"K1 block design vs plain at B={B2}, T={T2}: max abs err "
+                f"{k1_block_err:.3e} (atol {GAINS_ATOL})")
+            del blk
         cots = [0.3 * torch.randn(x.shape, generator=g2, device=dev)
                 for x in out[:3]]
         A2, Bm2, _, R2, _, F2, VV2, WW2, _ = ins
@@ -1186,9 +1430,11 @@ def main() -> int:
     torch.cuda.synchronize()
     grad_s = time.perf_counter() - t0
     grad_launches = {k: fn.launches for k, fn in zip(names, counters)}
+    grad_design = fused_gains.design
     log(f"gradient path: {CHAINS} chains x {CONDITIONS} conditions x "
         f"{LL_TRIALS} trials at T={T_FIT}, D={u.shape[-1]}: value+grad in "
-        f"{grad_s:.3f} s (first call, host clock); launches {grad_launches}")
+        f"{grad_s:.3f} s (first call, host clock); launches {grad_launches} "
+        f"(K1 in its {grad_design} design)")
     require(all(v == 1 for v in grad_launches.values()),
             f"gradient path: each kernel once, got {grad_launches}")
     require(pot.shape == (CHAINS,) and grad.shape == u.shape,
@@ -1581,11 +1827,7 @@ def main() -> int:
     # 12. times
     # each kernel timed through its launching function on prepared inputs
     # (the public wrappers add host work: K1's is host-bound at this shape)
-    VV1 = spec.V @ mT(spec.V)
-    k1_ins = [x.expand((B,) + x.shape[-2:]).contiguous() for x in (
-        spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F, VV1,
-        spec.W @ mT(spec.W), S0)]
-    k1_ms = cuda_ms(lambda: gains_fwd(*k1_ins, T))
+    k1_ms = cuda_ms(lambda: gains_fwd(*k1_ins, T, design="thread"))
     k1_wrapper_ms = cuda_ms(lambda: fused_gains(spec, S0, T))
     k1_plain = cuda_ms(lambda: fused_gains_reference(spec, S0, T),
                        launches=3)
@@ -1758,9 +2000,11 @@ def main() -> int:
         replay_events = cuda_ms(lambda: graphed(u))
         replay_ms[what.split(":")[0]] = replay_events
         wall, busy, n_events, named = profile_ms(lambda: graphed(u), names)
-        seen = kernel_counts(lambda: graphed(u), names)
+        # three replays in one profiler session: a replay runs every node of
+        # its graph, and the profiler now and then drops a kernel's record
+        seen = kernel_counts(lambda: [graphed(u) for _ in range(3)], names)
         require(all(v >= 1 for v in seen.values()),
-                f"graph replay, {what}: kernels per replay {seen}")
+                f"graph replay, {what}: kernels in 3 replays {seen}")
         log(f"[{card}] graph, {what}, {CHAINS} chains, D={u.shape[-1]}: "
             f"capture {graphed.capture_s:.3f} s, instantiate "
             f"{graphed.instantiate_s:.3f} s (with the warm-up {built_s:.3f} "
@@ -1770,7 +2014,7 @@ def main() -> int:
             f"{wall:.3f} ms, device busy {busy:.3f} ms "
             f"({100 * busy / wall:.2f}%) over {n_events} events, "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in named.items())
-            + f"; kernels per replay {seen}; replay vs eager at 3 points: "
+            + f"; kernels in 3 replays {seen}; replay vs eager at 3 points: "
             f"value rel err max {max(e[0] for e in errs):.3e}, gradient "
             f"{max(e[1] for e in errs):.3e}; eager value+grad under "
             f"set_sync_debug_mode('error'): no copy, no synchronization")
@@ -1849,8 +2093,18 @@ def main() -> int:
     # 15. the rest of the zoo, through the entry points a user calls
     zoo_launches = zoo_paths(dev, card, names, all_counters, all_names)
     log(f"phases 1-15: {time.perf_counter() - t_start:.1f} s")
-    # 16. the zoo's instances of K1-K4 against their plain versions
+    # 16. the zoo's instances of K1-K4 against their plain versions; K1's
+    # block design against its thread design at the zoo's instances, the
+    # crossover sweep of the two designs, and both timed beside their
+    # bounds at the shapes the paths launch K1 at
     zoo_ms = zoo_instances(dev, card)
+    t0 = time.perf_counter()
+    k1_bits += k1_designs_bits(dev, card, K1_INSTANCES[3:])
+    mhz = sm_clock_mhz()
+    k1_cross = k1_crossover(dev, card)
+    k1_rows = k1_times(dev, card, mhz)
+    log(f"K1 designs (bits, crossover, times): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     def zoo_rows(kernel, base):
         """The kernel's times at its base shape and at the zoo's, with each
@@ -1861,6 +2115,22 @@ def main() -> int:
                      "plain_ms": v[4]} for k, v in rows.items()})
 
     k1_shapes = zoo_rows("gains_fwd", {f"(2, 1, 2) B={B} T={T}": k1_ms})
+
+    def k1_design_rows(design):
+        """One K1 design's times at K1's shapes (store-free, with the
+        stores), with the bounds."""
+        return ({k: {v: r[v][f"{design}_ms"] for v in ("free", "stores")}
+                 for k, r in k1_rows.items()},
+                {k: {v: {"bound_ms": r[v]["bound_ms"],
+                         "bound_by": r[v]["bound_by"],
+                         "chain_ms": r[v]["chain_ms"]}
+                     for v in ("free", "stores")} for k, r in k1_rows.items()})
+
+    k1_block_shape = f"{(2, 1, 2)} B={CHAINS * CONDITIONS} T={T_FIT}"
+    k1_block = k1_rows[k1_block_shape]["stores"]
+    crossover = {f"{nmp} B={B_} {'stores' if st else 'free'}": {
+        "thread_ms": v[0], "block_ms": v[1], "auto": v[2]}
+        for (nmp, B_, st), v in k1_cross.items()}
     k2_shapes = zoo_rows("gains_bwd", {
         f"(2, 1, 2) B={CHAINS * CONDITIONS} T={T_FIT}": k2_ms,
         f"(2, 1, 2) B={k2_large_shape[1]} T={k2_large_shape[0]}":
@@ -1875,10 +2145,25 @@ def main() -> int:
         {"name": "gains_fwd", "route": "cuda",
          "source": "lqg_tpu_torch/csrc/gains.cu",
          "replaces": "lqg_tpu/ops/pallas/gains.py:149",
-         "launches": launches["gains_fwd"], "max_abs_err": k1_err,
+         "design": "thread", "launches": sweep_launches["thread"],
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None,
-         "ms_by_shape": k1_shapes[0], "zoo_shapes": k1_shapes[1]},
+         "ms_by_shape": k1_shapes[0], "zoo_shapes": k1_shapes[1],
+         "designs_ms_by_shape": k1_design_rows("thread")[0]},
+        {"name": "gains_fwd_block", "route": "cuda",
+         "source": "lqg_tpu_torch/csrc/gains.cu",
+         "replaces": "lqg_tpu/ops/pallas/gains.py:149",
+         "design": "block", "launches": launches["gains_fwd_block"],
+         "launches_per_value_and_grad": grad_launches["gains_fwd"],
+         "max_abs_err": k1_block_err, "ms": k1_block["block_ms"],
+         "shape": k1_block_shape + " stores",
+         "plain_ms": k1_block_plain, "bound_ms": k1_block["bound_ms"],
+         "bound_by": k1_block["bound_by"], "chain_ms": k1_block["chain_ms"],
+         "library_ms": None, "same_bits_as_thread": k1_bits,
+         "ms_by_shape": k1_design_rows("block")[0],
+         "bounds_by_shape": k1_design_rows("block")[1],
+         "crossover": crossover},
         {"name": "ll_fwd", "route": "cuda",
          "source": "lqg_tpu_torch/csrc/likelihood.cu",
          "replaces": "lqg_tpu/ops/pallas/likelihood.py:160",

@@ -1,5 +1,6 @@
-// K1: fused Riccati backward + Kalman forward gains, one thread per particle,
-// and K2, its analytic adjoint, one thread block per particle.
+// K1: fused Riccati backward + Kalman forward gains, in two designs (one
+// thread per particle, one block per particle), and K2, its analytic
+// adjoint, one thread block per particle.
 //
 // K1 replaces lqg_tpu/ops/pallas/gains.py:_gains_merged_kernel, K2 replaces
 // gains.py:_gains_adjoint_kernel.  Wrappers, the torch.autograd.Function
@@ -21,18 +22,45 @@
 // carry P entering the predict of step t into slot t, both (T, B, n, n):
 // the residues K2 reads (gains.py:213-219).
 //
-// Bound on an H100: latency.  Each thread carries a T-step chain of
-// dependent scalar operations; at B = 16,384 there are ~4 warps per SM, too
-// few to hide it, while the bytes written (28 B per particle-step) would
-// take 0.14 ms at T = 1000.  The spec and both carries stay in registers,
-// there is no time chunking (any T), and each step's gains are written
-// straight to their final slots.
+// Bound on an H100: latency.  Each particle carries two T-step chains of
+// dependent scalar operations, while the bytes written (28 B a
+// particle-step at (2, 1, 2)) would take 0.14 ms at B = 16,384, T = 1000
+// and well under a microsecond at the potential's B = 24.
+//
+// The thread design (gains_fwd): one thread per particle walks both
+// recursions, the spec and both carries in registers, no time chunking (any
+// T), each step's gains written straight to their final slots.  At B =
+// 16,384 it has ~4 warps an SM, each issuing ~180-1,000 instructions a step
+// in order; at the potential's B = 4-24 it has one warp on one SM, and a
+// step costs the sum of both recursions' instructions and latencies.
+//
+// The block design (gains_fwd_block), for small batches: one 64-thread
+// block per particle, the Riccati recursion on warp 0 and the Kalman
+// recursion on warp 1 (two schedulers), so that the two chains overlap.
+// Each warp runs its recursion in one of two layouts, chosen per instance
+// (BlockLayout):
+// - one lane, the thread design's step as it is;
+// - spread, lane r n + q owning entry (r, q) of the carry: the carry goes
+//   through a shared tile each step (written by its owners, __syncwarp, read
+//   whole by every lane), and each lane computes from it what its entry
+//   needs.  Riccati: the columns r and q of S A, G and L, all of S B and H
+//   (every lane inverts H itself), then its entry of the new carry; at m > 1
+//   the symmetric projection reads the transposed entry by one shuffle.  One
+//   exchange a step.  Kalman: entry (r, q) of A P A^T + VV; the lanes below
+//   n p then each form one entry of P F^T from a row of it; then every lane
+//   forms F P F^T + WW and inverts it, its row of K and its entry of the new
+//   carry.  Three exchanges a step.
+// Every entry is computed with the same operations in the same order as in
+// the thread design (rn_algebra.cuh), so the two designs give the same bits.
+// The stores come from the lanes owning the entries (a particle's row of L,
+// H, K, S, P at one step is contiguous) and nothing waits on them.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
 #include "pipeline.cuh"
+#include "rn_algebra.cuh"
 #include "small_matrix.cuh"
 
 namespace {
@@ -48,6 +76,94 @@ __device__ __forceinline__ void sym_gauge(const float* x, float* out) {
     for (int q = 0; q < N; ++q)
       out[r * N + q] = PROJECT ? 0.5f * (x[r * N + q] + x[q * N + r])
                                : x[r * N + q];
+}
+
+// Entry (r, q) of L^T G + G^T L from the columns r and q of L and G (each
+// of stride s): at m = 1 the sum is symmetric, the product of the lower
+// index's L entry fused.
+template <int M>
+__device__ __forceinline__ float inner_sum(const float* Lr, const float* Gr,
+                                           const float* Lq, const float* Gq,
+                                           int s, int r, int q) {
+  if (M == 1 && r > q)
+    return rn::dot_add<M>(Lq, s, Gr, s, rn::dot<M>(Gq, s, Lr, s));
+  return rn::dot_add<M>(Lr, s, Gq, s, rn::dot<M>(Gr, s, Lq, s));
+}
+
+// One Riccati step of one thread: S (in place) to the next carry, and the
+// step's L and H.
+template <int N, int M>
+__device__ __forceinline__ void riccati_step(const float* A, const float* Bm,
+                                             const float* Q, const float* R,
+                                             float* S, float* L, float* H,
+                                             float eps) {
+  float SB[N * M], SA[N * N], BtSB[M * M], G[M * N];
+  rn::matmul<N, N, M>(S, Bm, SB);
+  rn::matmul<N, N, N>(S, A, SA);
+  rn::matmul<M, N, M, true>(Bm, SB, BtSB);
+#pragma unroll
+  for (int i = 0; i < M * M; ++i) H[i] = rn::add(R[i], BtSB[i]);
+  rn::matmul<M, N, N, true>(Bm, SA, G);
+  float Hinv[M * M], HinvG[M * N], HL[M * N];
+  rn::sym_inv<M>(H, eps, Hinv);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      HinvG[i * N + j] = rn::dot_inv<M>(G + j, N, Hinv + i * M, 1, i);
+#pragma unroll
+  for (int i = 0; i < M * N; ++i) L[i] = -HinvG[i];
+  rn::matmul<M, M, N>(H, L, HL);
+  float AtSA[N * N], X[N * N];
+  rn::matmul<N, N, N, true>(A, SA, AtSA);
+  // (Q + A^T S A) + (L^T H L + (L^T G + G^T L))
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      X[r * N + q] = rn::add(
+          rn::add(Q[r * N + q], AtSA[r * N + q]),
+          rn::dot_add<M>(L + r, N, HL + q, N,
+                         inner_sum<M>(L + r, G + r, L + q, G + q, N, r, q)));
+  // at m > 1 the carry in the symmetric gauge: unprojected, its
+  // antisymmetric part reaches H and can grow from rounding
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      S[r * N + q] = M > 1 ? rn::mul(0.5f, rn::add(X[r * N + q], X[q * N + r]))
+                           : X[r * N + q];
+}
+
+// One Kalman step of one thread: P (in place) to the next carry, and the
+// step's K.
+template <int N, int P>
+__device__ __forceinline__ void kalman_step(const float* A, const float* F,
+                                            const float* VV, const float* WW,
+                                            float* Pc, float* K, float eps) {
+  float PAt[N * N], Pp[N * N], PFt[N * P], FPFt[P * P], Gk[P * P],
+      Gki[P * P];
+  rn::matmul<N, N, N, false, true>(Pc, A, PAt);
+  rn::matmul<N, N, N>(A, PAt, Pp);
+#pragma unroll
+  for (int i = 0; i < N * N; ++i) Pp[i] = rn::add(Pp[i], VV[i]);
+  rn::matmul<N, N, P, false, true>(Pp, F, PFt);
+  rn::matmul<P, N, P>(F, PFt, FPFt);
+#pragma unroll
+  for (int i = 0; i < P * P; ++i) Gk[i] = rn::add(FPFt[i], WW[i]);
+  rn::sym_inv<P>(Gk, eps, Gki);
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      K[r * P + j] = rn::dot_inv<P>(PFt + r * P, 1, Gki + j, P, j);
+  // P - K (P F^T)^T
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+#pragma unroll
+    for (int q = 0; q < N; ++q)
+      Pc[r * N + q] =
+          rn::sub_dot<P>(Pp[r * N + q], K + r * P, 1, PFt + q * P, 1);
 }
 
 template <int N, int M, int P, bool STORES>
@@ -72,11 +188,6 @@ __global__ void __launch_bounds__(128)
   load<P * N>(F_ + (size_t)b * P * N, F);
   load<N * N>(VV_ + (size_t)b * N * N, VV);
   load<P * P>(WW_ + (size_t)b * P * P, WW);
-  float At[N * N], Bt[M * N], Ft[N * P];
-  transpose<N, N>(A, At);
-  transpose<N, M>(Bm, Bt);
-  transpose<P, N>(F, Ft);
-
   float S[N * N], Pc[N * N];
   load<N * N>(Qf_ + (size_t)b * N * N, S);
   load<N * N>(Sigma0_ + (size_t)b * N * N, Pc);
@@ -88,55 +199,288 @@ __global__ void __launch_bounds__(128)
       store<N * N>(S_st + rev * (N * N), S);
       store<N * N>(P_st + fwd * (N * N), Pc);
     }
-    // --- Riccati backward ---
-    float SB[N * M], SA[N * N], BtSB[M * M], H[M * M], G[M * N];
-    matmul<N, N, M>(S, Bm, SB);
-    matmul<N, N, N>(S, A, SA);
-    matmul<M, N, M>(Bt, SB, BtSB);
-#pragma unroll
-    for (int i = 0; i < M * M; ++i) H[i] = R[i] + BtSB[i];
-    matmul<M, N, N>(Bt, SA, G);
-    float Hinv[M * M], HinvG[M * N], L[M * N], Lt[N * M], HL[M * N];
-    sym_inv<M>(H, eps, Hinv);
-    matmul<M, M, N>(Hinv, G, HinvG);
-#pragma unroll
-    for (int i = 0; i < M * N; ++i) L[i] = -HinvG[i];
-    transpose<M, N>(L, Lt);
-    matmul<M, M, N>(H, L, HL);
-    float AtSA[N * N], LtHL[N * N], LtG[N * N], Gt[N * M], GtL[N * N];
-    matmul<N, N, N>(At, SA, AtSA);
-    matmul<N, M, N>(Lt, HL, LtHL);
-    matmul<N, M, N>(Lt, G, LtG);
-    transpose<M, N>(G, Gt);
-    matmul<N, M, N>(Gt, L, GtL);
-    float X[N * N];
-#pragma unroll
-    for (int i = 0; i < N * N; ++i)
-      X[i] = (Q[i] + AtSA[i]) + (LtHL[i] + (LtG[i] + GtL[i]));
-    // at m > 1 the carry in the symmetric gauge: unprojected, its
-    // antisymmetric part reaches H and can grow from rounding
-    sym_gauge<N, (M > 1)>(X, S);
+    float L[M * N], H[M * M], K[N * P];
+    riccati_step<N, M>(A, Bm, Q, R, S, L, H, eps);
     store<M * N>(L_out + rev * (M * N), L);
     store<M * M>(H_out + rev * (M * M), H);
-
-    // --- Kalman forward ---
-    float PAt[N * N], Pp[N * N], PFt[N * P], FPFt[P * P], Gk[P * P];
-    matmul<N, N, N>(Pc, At, PAt);
-    matmul<N, N, N>(A, PAt, Pp);
-#pragma unroll
-    for (int i = 0; i < N * N; ++i) Pp[i] = Pp[i] + VV[i];
-    matmul<N, N, P>(Pp, Ft, PFt);
-    matmul<P, N, P>(F, PFt, FPFt);
-#pragma unroll
-    for (int i = 0; i < P * P; ++i) Gk[i] = FPFt[i] + WW[i];
-    float Gkinv[P * P], K[N * P], PFtT[P * N], KPF[N * N];
-    sym_inv<P>(Gk, eps, Gkinv);
-    matmul<N, P, P>(PFt, Gkinv, K);
-    transpose<N, P>(PFt, PFtT);
-    matmul<N, P, N>(K, PFtT, KPF);
-#pragma unroll
-    for (int i = 0; i < N * N; ++i) Pc[i] = Pp[i] - KPF[i];
+    kalman_step<N, P>(A, F, VV, WW, Pc, K, eps);
     store<N * P>(K_out + fwd * (N * P), K);
+  }
+}
+
+// The block design's Riccati warp in the one-lane layout: lane 0 walks the
+// thread design's steps.
+template <int N, int M, bool STORES>
+__device__ __forceinline__ void riccati_lane(
+    const float* __restrict__ A_, const float* __restrict__ B_,
+    const float* __restrict__ Q_, const float* __restrict__ R_,
+    const float* __restrict__ Qf_, float* __restrict__ L_out,
+    float* __restrict__ H_out, float* __restrict__ S_st, int b, int batch,
+    int T, float eps) {
+  float A[N * N], Bm[N * M], Q[N * N], R[M * M], S[N * N];
+  load<N * N>(A_ + (size_t)b * N * N, A);
+  load<N * M>(B_ + (size_t)b * N * M, Bm);
+  load<N * N>(Q_ + (size_t)b * N * N, Q);
+  load<M * M>(R_ + (size_t)b * M * M, R);
+  load<N * N>(Qf_ + (size_t)b * N * N, S);
+  for (int t = 0; t < T; ++t) {
+    const size_t rev = (size_t)(T - 1 - t) * batch + b;
+    if (STORES) store<N * N>(S_st + rev * (N * N), S);
+    float L[M * N], H[M * M];
+    riccati_step<N, M>(A, Bm, Q, R, S, L, H, eps);
+    store<M * N>(L_out + rev * (M * N), L);
+    store<M * M>(H_out + rev * (M * M), H);
+  }
+}
+
+// The block design's Kalman warp in the one-lane layout.
+template <int N, int P, bool STORES>
+__device__ __forceinline__ void kalman_lane(
+    const float* __restrict__ A_, const float* __restrict__ F_,
+    const float* __restrict__ VV_, const float* __restrict__ WW_,
+    const float* __restrict__ Sigma0_, float* __restrict__ K_out,
+    float* __restrict__ P_st, int b, int batch, int T, float eps) {
+  float A[N * N], F[P * N], VV[N * N], WW[P * P], Pc[N * N];
+  load<N * N>(A_ + (size_t)b * N * N, A);
+  load<P * N>(F_ + (size_t)b * P * N, F);
+  load<N * N>(VV_ + (size_t)b * N * N, VV);
+  load<P * P>(WW_ + (size_t)b * P * P, WW);
+  load<N * N>(Sigma0_ + (size_t)b * N * N, Pc);
+  for (int t = 0; t < T; ++t) {
+    const size_t fwd = (size_t)t * batch + b;
+    if (STORES) store<N * N>(P_st + fwd * (N * N), Pc);
+    float K[N * P];
+    kalman_step<N, P>(A, F, VV, WW, Pc, K, eps);
+    store<N * P>(K_out + fwd * (N * P), K);
+  }
+}
+
+// The Riccati warp in the spread layout: lane l = r N + q < N^2 owns entry
+// (r, q) of the carry; `tile` holds two carries of pad4(N^2) floats, the
+// one a step reads and the one it writes.
+template <int N, int M, bool STORES>
+__device__ __forceinline__ void riccati_spread(
+    const float* __restrict__ A_, const float* __restrict__ B_,
+    const float* __restrict__ Q_, const float* __restrict__ R_,
+    const float* __restrict__ Qf_, float* __restrict__ L_out,
+    float* __restrict__ H_out, float* __restrict__ S_st, float* tile, int b,
+    int batch, int T, float eps, int lane) {
+  constexpr int NN = N * N, TS = rn::pad4(NN);
+  constexpr unsigned mask = rn::lanes_mask(NN);
+  if (lane >= NN) return;
+  const int r = lane / N, q = lane % N;
+  const size_t nn = (size_t)b * NN;
+  // the spec: B and R whole, the columns r and q of A, entry (r, q) of Q
+  float Bm[N * M], R[M * M], Ar[N], Aq[N];
+  load<N * M>(B_ + (size_t)b * N * M, Bm);
+  load<M * M>(R_ + (size_t)b * M * M, R);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    Ar[k] = A_[nn + k * N + r];
+    Aq[k] = A_[nn + k * N + q];
+  }
+  const float Qrq = Q_[nn + lane];
+  float mine = Qf_[nn + lane];
+  tile[lane] = mine;
+  __syncwarp(mask);
+  for (int t = 0; t < T; ++t) {
+    const size_t rev = (size_t)(T - 1 - t) * batch + b;
+    if (STORES) S_st[rev * NN + lane] = mine;
+    float S[NN];
+    rn::read_tile<NN>(tile + (t & 1) * TS, S);
+    // S B whole; the columns r and q of S A and G = B^T S A
+    float SB[N * M], SAr[N], SAq[N], BtSB[M * M], H[M * M], Gr[M], Gq[M];
+    rn::matmul<N, N, M>(S, Bm, SB);
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      SAr[k] = rn::dot<N>(S + k * N, 1, Ar, 1);
+      SAq[k] = rn::dot<N>(S + k * N, 1, Aq, 1);
+    }
+    rn::matmul<M, N, M, true>(Bm, SB, BtSB);
+#pragma unroll
+    for (int i = 0; i < M * M; ++i) H[i] = rn::add(R[i], BtSB[i]);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      Gr[i] = rn::dot<N>(Bm + i, M, SAr, 1);
+      Gq[i] = rn::dot<N>(Bm + i, M, SAq, 1);
+    }
+    // every lane inverts H; the columns r and q of L, the column q of H L
+    float Hinv[M * M], Lr[M], Lq[M], HLq[M];
+    rn::sym_inv<M>(H, eps, Hinv);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      Lr[i] = -rn::dot_inv<M>(Gr, 1, Hinv + i * M, 1, i);
+      Lq[i] = -rn::dot_inv<M>(Gq, 1, Hinv + i * M, 1, i);
+    }
+#pragma unroll
+    for (int i = 0; i < M; ++i) HLq[i] = rn::dot<M>(H + i * M, 1, Lq, 1);
+    // entry (r, q) of the new carry
+    const float X = rn::add(
+        rn::add(Qrq, rn::dot<N>(Ar, 1, SAq, 1)),
+        rn::dot_add<M>(Lr, 1, HLq, 1, inner_sum<M>(Lr, Gr, Lq, Gq, 1, r, q)));
+    if (M > 1)
+      mine = rn::mul(0.5f, rn::add(X, __shfl_sync(mask, X, q * N + r)));
+    else
+      mine = X;
+    tile[((t + 1) & 1) * TS + lane] = mine;
+    if (lane < M * N) L_out[rev * (M * N) + lane] = rn::pick<M>(Lq, r);
+    if (lane < M * M) H_out[rev * (M * M) + lane] = rn::pick<M * M>(H, lane);
+    __syncwarp(mask);
+  }
+}
+
+// The Kalman warp in the spread layout: lane l = r N + q < N^2 owns entry
+// (r, q) of the carry, lane l < N P also entry (l / P, l % P) of P F^T and
+// of K.  `tile` holds the carry, A P A^T + VV and P F^T, each padded to a
+// multiple of four floats.
+template <int N, int P, bool STORES>
+__device__ __forceinline__ void kalman_spread(
+    const float* __restrict__ A_, const float* __restrict__ F_,
+    const float* __restrict__ VV_, const float* __restrict__ WW_,
+    const float* __restrict__ Sigma0_, float* __restrict__ K_out,
+    float* __restrict__ P_st, float* tile, int b, int batch, int T,
+    float eps, int lane) {
+  constexpr int NN = N * N, NP = N * P;
+  constexpr unsigned mask = rn::lanes_mask(NN);
+  float* Pt = tile;
+  float* Ppt = tile + rn::pad4(NN);
+  float* PFt_t = Ppt + rn::pad4(NN);
+  if (lane >= NN) return;
+  const int r = lane / N, q = lane % N, i1 = lane / P, j1 = lane % P;
+  const size_t nn = (size_t)b * NN;
+  // the spec: F and WW whole, the rows r and q of A, the row j1 of F,
+  // entry (r, q) of VV
+  float F[P * N], WW[P * P], Ar[N], Aq[N], Fj[N];
+  load<P * N>(F_ + (size_t)b * P * N, F);
+  load<P * P>(WW_ + (size_t)b * P * P, WW);
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    Ar[k] = A_[nn + r * N + k];
+    Aq[k] = A_[nn + q * N + k];
+    Fj[k] = F_[(size_t)b * P * N + j1 * N + k];
+  }
+  const float VVrq = VV_[nn + lane];
+  float mine = Sigma0_[nn + lane];
+  Pt[lane] = mine;
+  __syncwarp(mask);
+  for (int t = 0; t < T; ++t) {
+    const size_t fwd = (size_t)t * batch + b;
+    if (STORES) P_st[fwd * NN + lane] = mine;
+    // entry (r, q) of A P A^T + VV
+    float Pc[NN], PAtq[N];
+    rn::read_tile<NN>(Pt, Pc);
+#pragma unroll
+    for (int k = 0; k < N; ++k) PAtq[k] = rn::dot<N>(Pc + k * N, 1, Aq, 1);
+    const float Pp = rn::add(rn::dot<N>(Ar, 1, PAtq, 1), VVrq);
+    Ppt[lane] = Pp;
+    __syncwarp(mask);
+    // entry (i1, j1) of P F^T from the row i1 of A P A^T + VV
+    if (lane < NP) {
+      float row[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) row[k] = Ppt[i1 * N + k];
+      PFt_t[lane] = rn::dot<N>(row, 1, Fj, 1);
+    }
+    __syncwarp(mask);
+    // every lane inverts F P F^T + WW; the row r of K, entry (r, q) of the
+    // new carry
+    float PFt[NP], FPFt[P * P], Gk[P * P], Gki[P * P], PFr[P], PFq[P],
+        Kr[P];
+    rn::read_tile<NP>(PFt_t, PFt);
+    rn::matmul<P, N, P>(F, PFt, FPFt);
+#pragma unroll
+    for (int i = 0; i < P * P; ++i) Gk[i] = rn::add(FPFt[i], WW[i]);
+    rn::sym_inv<P>(Gk, eps, Gki);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      PFr[j] = PFt_t[r * P + j];
+      PFq[j] = PFt_t[q * P + j];
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) Kr[j] = rn::dot_inv<P>(PFr, 1, Gki + j, P, j);
+    mine = rn::sub_dot<P>(Pp, Kr, 1, PFq, 1);
+    if (lane < NP) {  // entry (i1, j1) of K
+      float row[P], col[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        row[k] = PFt_t[i1 * P + k];
+        col[k] = rn::pick<P>(Gki + k * P, j1);
+      }
+      K_out[fwd * NP + lane] = rn::dot_inv<P>(row, 1, col, 1, j1);
+    }
+    Pt[lane] = mine;
+    __syncwarp(mask);
+  }
+}
+
+// Each instance's warp layouts in the block design: true for the spread
+// layout, false for one lane.  The fastest of the four at B = 24, T = 1008
+// with the stores (the potential's launch), scripts/k1_designs.py on an
+// NVIDIA H100 80GB HBM3 at 700 W (ms; R0K0 R0K1 R1K0 R1K1, 0 one lane, 1
+// spread, for the Riccati warp and the Kalman warp; the thread design
+// last):
+//   (2, 1, 2) 0.1277 0.2057 0.1597 0.2123  0.2231
+//   (2, 1, 1) 0.1093 0.1977 0.1522 0.1918  0.1868
+//   (3, 1, 2) 0.1761 0.2804 0.1754 0.2845  0.3199
+//   (4, 1, 3) 0.3486 0.2998 0.3440 0.3068  0.5808
+//   (5, 1, 2) 0.3944 0.4264 0.3957 0.3704  0.7934
+//   (4, 2, 2) 0.3861 0.3830 0.2993 0.3139  0.6256
+// At n = 2 a step is shorter than the exchanges spreading it costs.
+template <int N, int M, int P>
+struct BlockLayout {
+  static constexpr bool riccati = false, kalman = false;
+};
+template <>
+struct BlockLayout<3, 1, 2> {
+  static constexpr bool riccati = true, kalman = false;
+};
+template <>
+struct BlockLayout<4, 1, 3> {
+  static constexpr bool riccati = false, kalman = true;
+};
+template <>
+struct BlockLayout<5, 1, 2> {
+  static constexpr bool riccati = true, kalman = true;
+};
+template <>
+struct BlockLayout<4, 2, 2> {
+  static constexpr bool riccati = true, kalman = false;
+};
+
+template <int N, int M, int P>
+__host__ __device__ constexpr int block_tile_floats() {
+  return 4 * rn::pad4(N * N) + rn::pad4(N * P);
+}
+
+template <int N, int M, int P, bool STORES, bool SR, bool SK>
+__global__ void __launch_bounds__(64)
+    gains_fwd_block(const float* __restrict__ A_, const float* __restrict__ B_,
+                    const float* __restrict__ Q_, const float* __restrict__ R_,
+                    const float* __restrict__ Qf_,
+                    const float* __restrict__ F_,
+                    const float* __restrict__ VV_,
+                    const float* __restrict__ WW_,
+                    const float* __restrict__ Sigma0_,
+                    float* __restrict__ L_out, float* __restrict__ H_out,
+                    float* __restrict__ K_out, float* __restrict__ S_st,
+                    float* __restrict__ P_st, int batch, int T, float eps) {
+  __shared__ __align__(16) float tile[block_tile_floats<N, M, P>()];
+  const int b = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 0) {
+    if (SR)
+      riccati_spread<N, M, STORES>(A_, B_, Q_, R_, Qf_, L_out, H_out, S_st,
+                                   tile, b, batch, T, eps, lane);
+    else if (lane == 0)
+      riccati_lane<N, M, STORES>(A_, B_, Q_, R_, Qf_, L_out, H_out, S_st, b,
+                                 batch, T, eps);
+  } else {
+    float* ktile = tile + 2 * rn::pad4(N * N);
+    if (SK)
+      kalman_spread<N, P, STORES>(A_, F_, VV_, WW_, Sigma0_, K_out, P_st,
+                                  ktile, b, batch, T, eps, lane);
+    else if (lane == 0)
+      kalman_lane<N, P, STORES>(A_, F_, VV_, WW_, Sigma0_, K_out, P_st, b,
+                                batch, T, eps);
   }
 }
 
@@ -768,6 +1112,26 @@ void launch_fwd(const float* A, const float* B, const float* Q, const float* R,
         eps);
 }
 
+constexpr int kBlockThreads = 64;  // the Riccati warp, the Kalman warp
+
+template <int N, int M, int P, bool SR, bool SK>
+void launch_fwd_block(const float* A, const float* B, const float* Q,
+                      const float* R, const float* Qf, const float* F,
+                      const float* VV, const float* WW, const float* Sigma0,
+                      float* L, float* H, float* K, float* S_st, float* P_st,
+                      int batch, int T, float eps, cudaStream_t stream) {
+  if (S_st != nullptr)
+    gains_fwd_block<N, M, P, true, SR, SK>
+        <<<batch, kBlockThreads, 0, stream>>>(A, B, Q, R, Qf, F, VV, WW,
+                                              Sigma0, L, H, K, S_st, P_st,
+                                              batch, T, eps);
+  else
+    gains_fwd_block<N, M, P, false, SR, SK>
+        <<<batch, kBlockThreads, 0, stream>>>(A, B, Q, R, Qf, F, VV, WW,
+                                              Sigma0, L, H, K, nullptr,
+                                              nullptr, batch, T, eps);
+}
+
 template <int N, int M, int P>
 int launch_bwd(const float* A, const float* B, const float* R, const float* F,
                const float* VV, const float* WW, const float* S_st,
@@ -807,11 +1171,11 @@ int dispatch(int n, int m, int p, Fn&& fn) {
 
 }  // namespace
 
-// Both entries return cudaGetLastError() after the launch (K2: or the error
-// of its shared-memory attribute call), or cudaErrorInvalidValue for an
-// (n, m, p) that is not instantiated or an empty problem.  K1 writes the
+// Every entry returns cudaGetLastError() after the launch (K2: or the
+// error of its shared-memory attribute call), or cudaErrorInvalidValue for
+// an (n, m, p) that is not instantiated or an empty problem.  K1 writes the
 // stores when S_st and P_st are both given (both null: the store-free
-// variant).
+// variant); lqg_gains_fwd launches its thread design.
 extern "C" int lqg_gains_fwd(const float* A, const float* B, const float* Q,
                              const float* R, const float* Qf, const float* F,
                              const float* VV, const float* WW,
@@ -828,6 +1192,68 @@ extern "C" int lqg_gains_fwd(const float* A, const float* B, const float* Q,
     return static_cast<int>(cudaGetLastError());
   });
 }
+
+// K1's block design, each instance in its BlockLayout; the same contract.
+extern "C" int lqg_gains_fwd_block(const float* A, const float* B,
+                                   const float* Q, const float* R,
+                                   const float* Qf, const float* F,
+                                   const float* VV, const float* WW,
+                                   const float* Sigma0, float* L, float* H,
+                                   float* K, float* S_st, float* P_st, int n,
+                                   int m, int p, int batch, int T, float eps,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch < 1 || T < 1 || (S_st == nullptr) != (P_st == nullptr))
+    return cudaErrorInvalidValue;
+  return dispatch(n, m, p, [&](auto d) {
+    using D = decltype(d);
+    using Lay = BlockLayout<D::N, D::M, D::P>;
+    launch_fwd_block<D::N, D::M, D::P, Lay::riccati, Lay::kalman>(
+        A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st, batch, T, eps,
+        s);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+#ifdef LQG_K1_LAYOUTS
+// The block design in a given layout (spread_riccati, spread_kalman: 1 for
+// the spread layout, 0 for one lane), for scripts/k1_designs.py, which
+// builds this file with -DLQG_K1_LAYOUTS to measure every layout.
+extern "C" int lqg_gains_fwd_layout(const float* A, const float* B,
+                                    const float* Q, const float* R,
+                                    const float* Qf, const float* F,
+                                    const float* VV, const float* WW,
+                                    const float* Sigma0, float* L, float* H,
+                                    float* K, float* S_st, float* P_st, int n,
+                                    int m, int p, int batch, int T, float eps,
+                                    int spread_riccati, int spread_kalman,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (batch < 1 || T < 1 || (S_st == nullptr) != (P_st == nullptr))
+    return cudaErrorInvalidValue;
+  return dispatch(n, m, p, [&](auto d) {
+    using D = decltype(d);
+    const int which = 2 * (spread_riccati != 0) + (spread_kalman != 0);
+    if (which == 0)
+      launch_fwd_block<D::N, D::M, D::P, false, false>(
+          A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st, batch, T,
+          eps, s);
+    else if (which == 1)
+      launch_fwd_block<D::N, D::M, D::P, false, true>(
+          A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st, batch, T,
+          eps, s);
+    else if (which == 2)
+      launch_fwd_block<D::N, D::M, D::P, true, false>(
+          A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st, batch, T,
+          eps, s);
+    else
+      launch_fwd_block<D::N, D::M, D::P, true, true>(
+          A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st, batch, T,
+          eps, s);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+#endif
 
 extern "C" int lqg_gains_bwd(const float* A, const float* B, const float* R,
                              const float* F, const float* VV, const float* WW,

@@ -16,13 +16,30 @@ the determinant.  Outputs keep the public time-leading layout
 
 What bounds it on an H100: not bytes.  At the bench shape (B=16,384,
 T=1000) it writes 459 MB, 0.14 ms at 3.35 TB/s, and does ~3 GFLOP, far
-below float32 peak; but one thread per particle gives only 16,384 threads
-(~4 warps per SM), each walking a T-step chain of dependent scalar FMAs and
-two divisions.  It is latency-bound.  The design keeps the whole carry and
-the spec in registers (no shared or local memory, no time chunking, so any
-T works, a prime one too) and writes each step's gains straight to their
-final slots, so the chain is the only cost; covering that latency with
-more independent work per SM is left for a later change.
+below float32 peak; at the potential's B=4-24 the bytes would take well
+under a microsecond.  Each particle is two T-step chains of dependent
+scalar FMAs and divisions: it is latency-bound.  K1 has two designs, which
+give the same bits (every operation an explicitly rounded intrinsic, in
+the plain version's order):
+
+- ``"thread"``: one thread per particle walks both recursions, the carry
+  and the spec in registers (no shared or local memory, no time chunking,
+  so any T works, a prime one too), each step's gains written straight to
+  their final slots.  At B=16,384 it has ~4 warps an SM.
+- ``"block"``: one 64-thread block per particle, the Riccati recursion on
+  one warp and the Kalman recursion on another, so that the two chains
+  overlap; at the larger instances each warp spreads a step's entries over
+  its lanes (lane ``r n + q`` owns entry ``(r, q)`` of the carry, which
+  goes through shared memory once a step for the Riccati warp, three times
+  for the Kalman warp).  It is for small batches, where the thread design
+  leaves all but one warp of the card idle.
+
+``gains_fwd(..., design="auto")`` takes the block design below each
+instance's crossover batch (:data:`THREAD_FROM`, store-free and with the
+stores) and the thread design from it on; ``design="thread"`` or
+``"block"`` forces one.  The design launched last is left on
+``fused_gains.design``, and each design's launches are counted in
+``fused_gains.design_launches`` beside ``.launches``.
 
 K2 (:func:`fused_gains_vjp`) reads the carries K1 stores on the gradient
 path (``S_t`` and ``P_t``, ``(T, B, n, n)``) and runs both adjoint
@@ -89,6 +106,30 @@ CHUNK = 32  # K2's steps a chunk, one lane a step (csrc/gains.cu: kChunk)
 # lqg_tpu/ops/pallas/gains.py:621-630)
 INSTANCES = frozenset({(2, 1, 2), (2, 1, 1), (3, 1, 2), (4, 1, 3), (5, 1, 2),
                        (4, 2, 2)})
+
+DESIGNS = ("auto", "thread", "block")
+# The batch from which ``design="auto"`` takes K1's thread design, per
+# instance, store-free and with the stores (None: never); below it the
+# block design.  Both designs timed in turns at B in {1, 4, 24, 132, 264,
+# 528, 1,056, 2,048, 16,384}, T=1000 (chip_smoke.py:k1_crossover, run by
+# scripts/k1_designs.py and by chip_smoke.py's phase 16, on an NVIDIA H100
+# 80GB HBM3 at 700 W; both runs agree): the block design was the faster at
+# every batch below the entry, the thread design at the entry and above.
+# With the stores the thread design slows down at n >= 3 from B=132 on
+# (each lane writes its carries to 32-byte sectors of its own): at (5, 1,
+# 2) the block design was the faster at every batch, 16,384 included (7.87
+# against 16.67 ms).
+THREAD_FROM = {(2, 1, 2): (1056, 1056), (2, 1, 1): (1056, 1056),
+               (3, 1, 2): (1056, 1056), (4, 1, 3): (1056, 16384),
+               (5, 1, 2): (2048, None), (4, 2, 2): (1056, 16384)}
+
+
+def design_for(n: int, m: int, p: int, batch: int,
+               stores: bool = False) -> str:
+    """The K1 design ``design="auto"`` launches for ``batch`` particles of
+    instance ``(n, m, p)``, store-free or with the stores."""
+    cross = THREAD_FROM[(n, m, p)][int(stores)]
+    return "block" if cross is None or batch < cross else "thread"
 
 
 def _sym(M: torch.Tensor) -> torch.Tensor:
@@ -300,6 +341,8 @@ def _lib():
                                   + [ctypes.c_int] * 5
                                   + [ctypes.c_float, ctypes.c_void_p])
     lib.lqg_gains_fwd.restype = ctypes.c_int
+    lib.lqg_gains_fwd_block.argtypes = lib.lqg_gains_fwd.argtypes
+    lib.lqg_gains_fwd_block.restype = ctypes.c_int
     lib.lqg_gains_bwd.argtypes = ([ctypes.c_void_p] * 20
                                   + [ctypes.c_int] * 5
                                   + [ctypes.c_float, ctypes.c_void_p])
@@ -331,16 +374,29 @@ def _dims(A, Bm, F):
     return A.shape[-1], Bm.shape[-1], F.shape[-2]
 
 
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def gains_fwd(A, Bm, Q, R, Qf, F, VV, WW, Sigma0, horizon: int,
-              stores: bool = False):
+              stores: bool = False, design: str = "auto"):
     """K1 on its inputs, each ``(B, ., .)``: ``(L, H, K)`` and, with
     ``stores``, the carries ``(S, P)`` K2 reads.  A CUDA tensor launches
-    the kernel (float32) or raises; a CPU tensor takes the plain version."""
+    the kernel (float32) in ``design`` (``"auto"``: :func:`design_for`;
+    ``"thread"``, ``"block"``) or raises; a CPU tensor takes the plain
+    version, whatever the design."""
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
     ins = (A, Bm, Q, R, Qf, F, VV, WW, Sigma0)
     if not _on_card(ins, "fused gains"):
         return _gains_reference(*ins, horizon, stores)
     n, m, p = _dims(A, Bm, F)
     Bn, device = A.shape[0], A.device
+    if design == "auto":
+        design = design_for(n, m, p, Bn, stores)
+    lib = _lib()
+    launch = (lib.lqg_gains_fwd if design == "thread"
+              else lib.lqg_gains_fwd_block)
     ins = [x.contiguous() for x in ins]
     new = lambda *shape: torch.empty((horizon, Bn) + shape,
                                      dtype=torch.float32, device=device)
@@ -348,12 +404,13 @@ def gains_fwd(A, Bm, Q, R, Qf, F, VV, WW, Sigma0, horizon: int,
     if stores:
         out += (new(n, n), new(n, n))
     st = [x.data_ptr() for x in out[3:]] if stores else [None, None]
-    status = _lib().lqg_gains_fwd(
+    status = launch(
         *(x.data_ptr() for x in ins), *(x.data_ptr() for x in out[:3]), *st,
-        n, m, p, Bn, horizon, EPS,
-        torch.cuda.current_stream(device).cuda_stream)
-    nvcc.check(status, "gains_fwd")
+        n, m, p, Bn, horizon, EPS, _stream(device))
+    nvcc.check(status, f"gains_fwd ({design} design)")
     fused_gains.launches += 1
+    fused_gains.design_launches[design] += 1
+    fused_gains.design = design
     return out
 
 
@@ -453,4 +510,6 @@ def fused_gains(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int):
 
 
 fused_gains.launches = 0
+fused_gains.design = None  # the K1 design launched last
+fused_gains.design_launches = {"thread": 0, "block": 0}
 fused_gains_vjp.launches = 0

@@ -2,20 +2,24 @@
 
 On the CPU: the plain PyTorch version against the JAX package's Pallas
 kernel in interpret mode (float32), at every instance, and the wrapper's
-checks.  On a card (``-m cuda``): the CUDA kernel against the plain
-version, at the bench's (2, 1, 2) and at the model zoo's (4, 1, 3), (5, 1,
-2) and (4, 2, 2).  JAX is imported inside the tests that use it, so that
-the card's tests collect where JAX is not installed.
+checks, its choice between K1's two designs (thread, block) among them.
+On a card (``-m cuda``): the CUDA kernel against the plain version, at the
+bench's (2, 1, 2) and at the model zoo's (4, 1, 3), (5, 1, 2) and (4, 2,
+2), and the block design against the plain version and against the thread
+design bit for bit at every instance.  JAX is imported inside the tests
+that use it, so that the card's tests collect where JAX is not installed.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lqg_tpu_torch.models import (HandMotionModelTrackingTask,
+from lqg_tpu_torch.models import (BoundedActor, HandMotionModelTrackingTask,
                                   PointMassBoundedActor,
-                                  RelativeObservationBoundedActor)
+                                  RelativeObservationBoundedActor,
+                                  SubjectiveActor)
 from lqg_tpu_torch.models.basic import tracking_spec
+from lqg_tpu_torch.ops.kernels import gains as kg
 from lqg_tpu_torch.ops.kernels.gains import (fused_gains,
                                              fused_gains_available,
                                              fused_gains_reference)
@@ -36,7 +40,16 @@ ZOO = {
 }
 _PORT = {"PointMassBoundedActor": PointMassBoundedActor,
          "HandMotionModelTrackingTask": HandMotionModelTrackingTask,
-         "RelativeObservationBoundedActor": RelativeObservationBoundedActor}
+         "RelativeObservationBoundedActor": RelativeObservationBoundedActor,
+         "BoundedActor": BoundedActor, "SubjectiveActor": SubjectiveActor}
+# each instance's model: name and keyword arguments; its action costs are
+# spread over the batch
+INSTANCE_MODELS = {
+    (2, 1, 2): ("BoundedActor", {}),
+    (2, 1, 1): ("RelativeObservationBoundedActor", {}),
+    (3, 1, 2): ("SubjectiveActor", {}),
+    **{nmp: v[:2] for nmp, v in ZOO.items()},
+}
 
 
 def _zoo_spec(nmp, T, device="cpu"):
@@ -44,6 +57,24 @@ def _zoo_spec(nmp, T, device="cpu"):
     name, kw, costs = ZOO[nmp]
     return _PORT[name](T=T, action_cost=torch.tensor(costs), device=device,
                        **kw).actor
+
+
+def _costs(B):
+    return np.logspace(-1.5, 0.5, B)
+
+
+def _instance_spec(nmp, B, T, device="cpu"):
+    """The port's actor spec of B parameter sets of the instance's model,
+    the action cost spread over the batch, float32; and K1's inputs."""
+    name, kw = INSTANCE_MODELS[nmp]
+    spec = _PORT[name](T=T, action_cost=torch.tensor(_costs(B),
+                                                      dtype=torch.float32),
+                       device=device, **kw).actor
+    VV = spec.V @ mT(spec.V)
+    ins = [x.expand((B,) + x.shape[-2:]).contiguous() for x in (
+        spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F, VV,
+        spec.W @ mT(spec.W), VV)]
+    return spec, ins
 
 
 def _sweep(B):
@@ -207,3 +238,182 @@ def test_zoo_instances_match_reference_on_card(cuda, nmp):
         assert fused_gains.launches == before + 1
         for a, b in zip(out, ref):
             torch.testing.assert_close(a, b, rtol=0, atol=ZOO_ATOL)
+
+
+@pytest.mark.parametrize("nmp", sorted(INSTANCE_MODELS))
+@pytest.mark.parametrize("B", [1, 4, 24])
+def test_reference_matches_pallas_at_the_main_path_batches(nmp, B):
+    """The plain K1 against the Pallas kernel in interpret mode at the
+    batches the main path launches K1 at (the forward path's 1, the NUTS
+    recovery's 4 chains, the potential's 4 chains x 6 conditions), at every
+    instance, T=23 (the Pallas time chunk of 10 does not divide it)."""
+    import jax
+    import jax.numpy as jnp
+    from lqg_tpu import models as jmodels
+    from lqg_tpu.ops.pallas.gains import fused_gains as jfused_gains
+
+    T = 23
+    name, kw = INSTANCE_MODELS[nmp]
+    actors = [getattr(jmodels, name)(T=T, action_cost=float(c), **kw).actor
+              for c in np.float32(_costs(B))]
+    jspec = jax.tree.map(lambda *a: jnp.stack(a), *actors)
+    jout = jfused_gains(jspec, jspec.V @ jnp.swapaxes(jspec.V, -1, -2),
+                        horizon=T, time_chunk=10)
+    spec, _ = _instance_spec(nmp, B, T)
+    assert (spec.A.shape[-1], spec.B.shape[-1], spec.F.shape[-2]) == nmp
+    tout = fused_gains_reference(spec, spec.V @ mT(spec.V), T)
+    atol = ATOL if nmp[0] == 2 else ZOO_ATOL
+    for t, j in zip(tout, jout):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("nmp", sorted(kg.INSTANCES))
+@pytest.mark.parametrize("stores", [False, True])
+def test_auto_design_is_a_function_of_instance_and_batch(nmp, stores):
+    """``design="auto"`` takes the block design below the instance's
+    crossover batch and the thread design from it on (never, where the
+    table has None), whatever else; the batches the main path launches K1
+    at (1, 4, 24) take the block design at every instance."""
+    assert set(kg.THREAD_FROM) == kg.INSTANCES
+    cross = kg.THREAD_FROM[nmp][int(stores)]
+    batches = [1, 4, 24, 132, 264, 528, 1056, 2048, 16384, 2 ** 20]
+    if cross is not None:
+        assert cross > 24
+        batches += [cross - 1, cross, cross + 1]
+    for B in batches:
+        want = "block" if cross is None or B < cross else "thread"
+        assert kg.design_for(*nmp, B, stores) == want
+    assert all(kg.design_for(*nmp, B, stores) == "block" for B in (1, 4, 24))
+
+
+def test_unknown_design_raises():
+    _, ins = _instance_spec((2, 1, 2), 2, 5)
+    for design in ("warp", "", None, "Block"):
+        with pytest.raises(ValueError, match="design"):
+            kg.gains_fwd(*ins, 5, design=design)
+
+
+@pytest.mark.parametrize("design", kg.DESIGNS)
+@pytest.mark.parametrize("stores", [False, True])
+def test_cpu_takes_the_plain_version_under_every_design(design, stores):
+    spec, ins = _instance_spec((4, 2, 2), 3, 7)
+    before = (fused_gains.launches, dict(fused_gains.design_launches))
+    out = kg.gains_fwd(*ins, 7, stores=stores, design=design)
+    ref = fused_gains_reference(spec, ins[-1], 7, stores=stores)
+    assert len(out) == len(ref) == (5 if stores else 3)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # no kernel launch on the CPU
+    assert (fused_gains.launches, fused_gains.design_launches) == before
+
+
+class _FakeLib:
+    """A stand-in for the built gains library: each entry returns its
+    status; entries named in ``missing`` are absent, as from a build that
+    lacks them."""
+
+    class _Entry:
+        def __init__(self, status, calls, name):
+            self.status, self.calls, self.name = status, calls, name
+
+        def __call__(self, *args):
+            self.calls.append(self.name)
+            return self.status
+
+    def __init__(self, statuses, missing=()):
+        self.calls = []
+        for name in ("lqg_gains_fwd", "lqg_gains_fwd_block", "lqg_gains_bwd",
+                     "lqg_gains_bwd_chunk"):
+            if name not in missing:
+                status = kg.CHUNK if name.endswith("chunk") else statuses.get(
+                    name, 0)
+                setattr(self, name, self._Entry(status, self.calls, name))
+
+
+def _as_if_on_card(monkeypatch, lib):
+    """gains_fwd's card path on CPU tensors, with ``lib`` as the library."""
+    from lqg_tpu_torch.ops.kernels import nvcc
+
+    monkeypatch.setattr(nvcc, "load", lambda name: lib)
+    monkeypatch.setattr(kg, "_on_card", lambda tensors, what: True)
+    monkeypatch.setattr(kg, "_stream", lambda device: 0)
+    monkeypatch.setattr(fused_gains, "launches", 0)
+    monkeypatch.setattr(fused_gains, "design", None)
+    monkeypatch.setattr(fused_gains, "design_launches",
+                        {"thread": 0, "block": 0})
+
+
+def test_block_design_failures_raise(monkeypatch):
+    """No fallback: with the block design's entry missing from the library
+    or its launch failing, gains_fwd raises and counts no launch; each
+    design goes to its own entry."""
+    _, ins = _instance_spec((2, 1, 2), 4, 5)
+    _as_if_on_card(monkeypatch, _FakeLib({}, missing=("lqg_gains_fwd_block",)))
+    for design in ("block", "auto", "thread"):
+        with pytest.raises(AttributeError, match="lqg_gains_fwd_block"):
+            kg.gains_fwd(*ins, 5, design=design)
+    assert fused_gains.launches == 0
+    failing = _FakeLib({"lqg_gains_fwd_block": 1})
+    _as_if_on_card(monkeypatch, failing)
+    for design, stores in (("block", False), ("auto", True)):
+        with pytest.raises(RuntimeError, match="block design.*error 1"):
+            kg.gains_fwd(*ins, 5, stores=stores, design=design)
+    assert fused_gains.launches == 0 and fused_gains.design is None
+    assert failing.calls == ["lqg_gains_bwd_chunk", "lqg_gains_fwd_block"] * 2
+    ok = _FakeLib({})
+    _as_if_on_card(monkeypatch, ok)
+    kg.gains_fwd(*ins, 5, design="thread")
+    assert fused_gains.design == "thread"
+    kg.gains_fwd(*ins, 5, stores=True)  # auto at B=4
+    assert fused_gains.design == kg.design_for(2, 1, 2, 4, True)
+    assert [c for c in ok.calls if c != "lqg_gains_bwd_chunk"] == [
+        "lqg_gains_fwd", {"block": "lqg_gains_fwd_block",
+                          "thread": "lqg_gains_fwd"}[fused_gains.design]]
+    assert fused_gains.launches == 2
+    assert sum(fused_gains.design_launches.values()) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nmp", sorted(INSTANCE_MODELS))
+def test_block_design_matches_thread_design_bits_on_card(cuda, nmp):
+    """The block design gives the thread design's bits, store-free and with
+    the stores, at B in {1, 4, 24, 33} and T in {1, 37, 1008}; K2 fed the
+    block design's stores gives the bits of K2 fed the thread design's."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for B in (1, 4, 24, 33):
+        for T in (1, 37, 1008):
+            _, ins = _instance_spec(nmp, B, T, device=cuda)
+            for stores in (False, True):
+                th = kg.gains_fwd(*ins, T, stores=stores, design="thread")
+                assert fused_gains.design == "thread"
+                bl = kg.gains_fwd(*ins, T, stores=stores, design="block")
+                assert fused_gains.design == "block"
+                torch.cuda.synchronize()
+                for a, b in zip(th, bl):
+                    assert torch.isfinite(a).all()
+                    assert torch.equal(a, b)
+            cots = [0.3 * torch.randn(x.shape, generator=g, device=cuda)
+                    for x in th[:3]]
+            A, Bm, _, R, _, F, VV, WW, _ = ins
+            k2 = [kg.fused_gains_vjp(A, Bm, R, F, VV, WW, *out[3:], *cots)
+                  for out in (th, bl)]
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(*k2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nmp", sorted(INSTANCE_MODELS))
+def test_block_design_matches_reference_on_card(cuda, nmp):
+    """The block design against the plain version, K1's tolerances, at the
+    potential's batch and T=1008, and at 96 sets, T=719."""
+    atol = ATOL if nmp[0] == 2 else ZOO_ATOL
+    for B, T in ((24, 1008), (96, 719)):
+        spec, ins = _instance_spec(nmp, B, T, device=cuda)
+        out = kg.gains_fwd(*ins, T, stores=True, design="block")
+        ref = fused_gains_reference(spec, ins[-1], T, stores=True)
+        torch.cuda.synchronize()
+        for a, b in zip(out[:3], ref[:3]):
+            torch.testing.assert_close(a, b, rtol=0, atol=atol)
+        for a, b in zip(out[3:], ref[3:]):  # the stores, at K2's tolerance
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)

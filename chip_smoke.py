@@ -101,7 +101,28 @@ beside it.  Phases, each fatal on failure:
     the stores) and K4 at (8, 2), (8, 4), (10, 2) and (10, 4), 24 sets x 20
     simulated trials at T=1008, two K4 launches the same bits; each
     instance's time beside its bound (and the plain version's at 24 sets),
-    added to the kernels line under ``ms_by_shape`` and ``zoo_shapes``.
+    added to the kernels line under ``ms_by_shape`` and ``zoo_shapes``;
+17. ``scripts/fit_data.py``'s pipeline on phase 7's data (6 conditions x 20
+    trials at T=1008, D=9), through the entry points: first K1 (with the
+    stores) and K2, K3 (with the stores) and K4 against their plain
+    versions at the parameter sets the pipeline launches them at (1, 8 and
+    16 points x 6 conditions = 6, 48, 96), two K2 and two K4 launches the
+    same bits, each timed beside its bound (``fit_shapes`` in the kernels
+    line); then, with the counters zeroed just before and read just after
+    (K1-K4 launched by the warm-ups and the captures): the MAP,
+    ``optimize`` for 300 steps at step size 0.05, each step a replay of the
+    graph captured by a first call, under ``set_sync_debug_mode("error")``;
+    ``fit_auto_iaf`` for 3,000 steps of 16 particles, the graphed ELBO
+    (float32) against eager float64 on one ``eps``; ``fit_auto_mvn`` for
+    300 steps of 8 particles; ``laplace_guide`` at the MAP (the scans,
+    cut to T=360, the phase's one cut: 124.76 s at T=1008);
+    ``neutra_reparam`` with the IAF, a 200-step polish in the warped space
+    and ``MCMC`` on 4 chains, 100 warmup + 100 samples, ``max_depth=8``,
+    each leapfrog one replay of the flow, the potential and autograd.  It
+    prints ms a step (CUDA events or the host clock) beside a replay alone
+    and Adam alone, the potential's decrease, the final ELBO, the laplace
+    time, ms a NeuTra leapfrog against a replay alone, divergences and
+    split R-hat.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -193,6 +214,24 @@ ZOO_GAINS_ATOL = 5e-4
 # means reach ~1e2-1e4 and keep float32 rounding of that scale, while its
 # activation's stay near 1); phase 16 prints each store's worst row
 K3_STORE_SCALE = 1e-3
+# phase 17, scripts/fit_data.py's pipeline at the data's shape: the MAP's
+# Adam steps at step size 0.05, the IAF guide fit (fit_data.py's 3,000
+# steps of 16 particles), the Gaussian guide's 300 steps of 8 particles, the
+# warped-space polish (step size 0.02) and NeuTra NUTS on 4 chains; K1-K4
+# held against their plain versions at the parameter sets those steps
+# launch them at (1, 8 and 16 points x 6 conditions); the ELBO's gradient
+# with respect to each guide parameter against float64 within
+# POT_GRAD_RTOL of itself plus ELBO_GRAD_SCALED of its leaf's largest entry
+# (a mean over particles of J^T grad, whose small entries cancel)
+MAP_STEPS, MAP_STEP_SIZE, IAF_STEPS, MVN_STEPS = 300, 0.05, 3000, 300
+POLISH_STEPS, POLISH_STEP_SIZE = 200, 0.02
+NEUTRA_WARMUP, NEUTRA_SAMPLES, NEUTRA_DEPTH = 100, 100, 8
+# laplace_guide runs the scans eagerly, with a double-backward graph: at
+# T=1008 it took 124.76 s on an H100, so its horizon is cut to keep it
+# under a minute (the other steps keep T=1008)
+LAPLACE_T = 360
+FIT_BATCHES = (1, 8, 16)  # points of the potential: MAP, MVN, IAF
+ELBO_GRAD_SCALED = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1126,6 +1165,374 @@ def zoo_instances(dev, card):
         del x, sets, joint, F_, Q_, X, st, st_ref, got, again, want, args
         torch.cuda.empty_cache()
     return out
+
+
+def fit_batches(dev, card, x_fit):
+    """Phase 17, kernels: K1 (with the stores, design by ``design_for``) and
+    K2 at (2, 1, 2), K3 (with the stores) and K4 at (4, 2), each at the
+    parameter sets the pipeline's steps launch them at (``FIT_BATCHES``
+    points x 6 conditions) at T=1008, against their plain versions; two K2
+    and two K4 launches the same bits; each timed beside its bound.
+    Returns {kernel: {shape: (ms, bound ms, bound_by, max abs err)}}."""
+    from lqg_tpu_torch.models import BoundedActor
+    from lqg_tpu_torch.ops.kernels.gains import (
+        fused_gains, fused_gains_reference, fused_gains_vjp,
+        fused_gains_vjp_reference, gains_fwd)
+    from lqg_tpu_torch.ops.kernels.likelihood import (
+        conditioned_log_likelihood_reference, conditioned_log_likelihood_vjp,
+        conditioned_log_likelihood_vjp_reference, ll_fwd)
+    from lqg_tpu_torch.ops.linalg import mT
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    out = {k: {} for k in ("gains_fwd_block", "gains_bwd", "ll_fwd",
+                           "ll_bwd")}
+    for points in FIT_BATCHES:
+        B = points * CONDITIONS
+        sp, ins = k1_inputs((2, 1, 2), B, T_FIT, dev)
+        res = gains_fwd(*ins, T_FIT, stores=True)
+        design = fused_gains.design
+        ref = fused_gains_reference(sp, ins[-1], T_FIT, stores=True)
+        torch.cuda.synchronize()
+        e1 = max(float((a - b).abs().max()) for a, b in zip(res[:3], ref[:3]))
+        require(all(bool(torch.isfinite(a).all()) for a in res)
+                and e1 <= GAINS_ATOL
+                and all(within(a, b, K2_RTOL, K2_ATOL)
+                        for a, b in zip(res[3:], ref[3:])),
+                f"K1 at B={B} vs plain: {e1}")
+        cots = [0.3 * torch.randn(x.shape, generator=g, device=dev)
+                for x in res[:3]]
+        A_, Bm_, _, R_, _, F_, VV_, WW_, _ = ins
+        args = (A_, Bm_, R_, F_, VV_, WW_, *res[3:], *cots)
+        got = fused_gains_vjp(*args)
+        again = fused_gains_vjp(*args)
+        want = fused_gains_vjp_reference(*args)
+        torch.cuda.synchronize()
+        e2 = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        require(all(torch.equal(a, b) for a, b in zip(got, again))
+                and all(bool(torch.isfinite(a).all()) for a in got)
+                and all(within(a, b, K2_RTOL,
+                               K2_ATOL + K2_SCALE * float(b.abs().max()))
+                        for a, b in zip(got, want)),
+                f"K2 at B={B} vs plain: {e2}")
+        shape = f"(2, 1, 2) B={B} T={T_FIT}"
+        k1_ms = cuda_ms(lambda: gains_fwd(*ins, T_FIT, stores=True))
+        k2_ms = cuda_ms(lambda: fused_gains_vjp(*args))
+        b1 = k1_bounds((2, 1, 2), B, T_FIT, True, sm_clock_mhz())
+        b2 = bound(gains_bwd_work(B, 2, 1, 2, T_FIT))
+        out["gains_fwd_block"][shape + " stores"] = (k1_ms, *b1[:2], e1)
+        out["gains_bwd"][shape] = (k2_ms, *b2, e2)
+        log(f"[{card}] fit batch {points} x {CONDITIONS}: K1 ({design} "
+            f"design) {shape} with the stores {k1_ms:.4f} ms (bound "
+            f"{b1[0]:.6f}, {b1[1]}; chain {b1[2]:.4f}), max abs err vs plain "
+            f"{e1:.3e} (atol {GAINS_ATOL}); K2 {k2_ms:.4f} ms (bound "
+            f"{b2[0]:.6f}, {b2[1]}), two launches the same bits, max abs err "
+            f"{e2:.3e}")
+        del res, ref, got, again, want, args, ins, sp
+
+        sets = BoundedActor(
+            T=T_FIT, device=dev,
+            sigma_target=torch.tensor([3.0 + 5.0 * c
+                                       for c in range(CONDITIONS)] * points,
+                                      device=dev),
+            action_cost=torch.tensor([0.25 * (1 + k) for k in range(points)
+                                      for _ in range(CONDITIONS)],
+                                     device=dev))
+        joint = sets._joint()
+        F4, Q4 = (torch.movedim(M, 0, 1).contiguous()
+                  for M in (joint.F, joint.G @ mT(joint.G)))
+        X4 = x_fit.repeat(points, 1, 1, 1)
+        ll, *st = ll_fwd(F4, Q4, X4, stores=True)
+        ll_ref, *st_ref = conditioned_log_likelihood_reference(F4, Q4, X4,
+                                                               stores=True)
+        torch.cuda.synchronize()
+        e3 = float((ll - ll_ref).abs().max())
+        require(bool(torch.isfinite(ll).all())
+                and within(ll, ll_ref, LL_RTOL, LL_ATOL)
+                and all(within(a, b, LL_RTOL, LL_ATOL)
+                        for a, b in zip(st, st_ref)),
+                f"K3 at P={B} vs plain: {e3}")
+        w = torch.randn(ll.shape, generator=g, device=dev)
+        args = (F4, X4, w, *st)
+        got = conditioned_log_likelihood_vjp(*args)
+        again = conditioned_log_likelihood_vjp(*args)
+        want = conditioned_log_likelihood_vjp_reference(*args)
+        torch.cuda.synchronize()
+        e4 = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        require(all(torch.equal(a, b) for a, b in zip(got, again))
+                and all(bool(torch.isfinite(a).all()) for a in got)
+                and all(within(a, b, K4_RTOL, atol) for a, b, atol in zip(
+                    got, want, (K4_FQ_ATOL, K4_FQ_ATOL, K4_X_ATOL))),
+                f"K4 at P={B} vs plain: {e4}")
+        shape = f"(4, 2) P={B} n={LL_TRIALS} T={T_FIT}"
+        k3_ms = cuda_ms(lambda: ll_fwd(F4, Q4, X4, stores=True))
+        k4_ms = cuda_ms(lambda: conditioned_log_likelihood_vjp(*args))
+        b3 = bound(ll_work(B, LL_TRIALS, 4, 2, T_FIT, stores=True))
+        b4 = bound(ll_bwd_work(B, LL_TRIALS, 4, 2, T_FIT))
+        out["ll_fwd"][shape + " stores"] = (k3_ms, *b3, e3)
+        out["ll_bwd"][shape] = (k4_ms, *b4, e4)
+        log(f"[{card}] fit batch {points} x {CONDITIONS}: K3 {shape} with "
+            f"the stores {k3_ms:.4f} ms (bound {b3[0]:.5f}, {b3[1]}), max abs "
+            f"err vs plain {e3:.3e} of |ll| ~ {float(ll_ref.abs().mean()):.1f}"
+            f" (rtol {LL_RTOL}, atol {LL_ATOL}); K4 {k4_ms:.4f} ms (bound "
+            f"{b4[0]:.5f}, {b4[1]}), two launches the same bits, max abs err "
+            f"{e4:.3e}")
+        del sets, joint, F4, Q4, X4, st, st_ref, got, again, want, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def loop_ms(fn):
+    """``fn()``'s result and its time in ms from CUDA events, the host
+    waiting only after the second event (``fn`` may run under
+    ``set_sync_debug_mode("error")``)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    result = fn()
+    stop.record()
+    stop.synchronize()
+    return result, start.elapsed_time(stop)
+
+
+def fit_pipeline(dev, card, counters, names, x_fit):
+    """Phase 17: ``scripts/fit_data.py``'s pipeline on the card at the data's
+    shape, through the entry points: ``optimize`` (the MAP), ``fit_auto_iaf``,
+    ``fit_auto_mvn``, ``laplace_guide``, ``neutra_reparam``, the warped-space
+    polish and ``MCMC``.  Returns the launches of K1-K4 (every step but
+    laplace's replays a captured graph, so they count the warm-ups and the
+    captures) and the step times."""
+    from lqg_tpu_torch.infer import MCMC, shared_params_lqg_model, split_rhat
+    from lqg_tpu_torch.infer.capture import (GraphedPotential,
+                                             GraphedValueAndGrad)
+    from lqg_tpu_torch.infer.flows import fit_auto_iaf
+    from lqg_tpu_torch.infer.svi import (adam, fit_auto_mvn, laplace_guide,
+                                         optimize)
+    from lqg_tpu_torch.infer.utils import neutra_reparam
+    from lqg_tpu_torch.models import BoundedActor
+
+    times = {}
+
+    def graph_of(model, C):
+        """The captured value+grad of ``model`` at ``C`` points."""
+        fns = [f for (shape, _, _), f in model.value_and_grad_fns.items()
+               if shape[0] == C]
+        require(len(fns) == 1 and isinstance(fns[0], GraphedValueAndGrad),
+                f"no captured graph at C={C}: {model.value_and_grad_fns}")
+        return fns[0]
+
+    def split(what, steps_fn, steps, vg, u, params):
+        """Device busy ms a step of ``steps_fn`` (``steps`` steps under
+        ``torch.profiler``, the graph already captured), of one replay of
+        ``vg`` at ``u`` and of one Adam update of ``params``; and a replay
+        and an Adam update alone from CUDA events (the host runs ahead of
+        the card, so within a step they overlap)."""
+        opt = adam(0.01)
+        grads = [torch.ones_like(p) for p in params]
+        state = opt.init(params)
+        busy = profile_ms(steps_fn, ())[1] / steps
+        replay_busy = profile_ms(lambda: vg(u), ())[1]
+        adam_busy = profile_ms(lambda: opt.update(grads, state), ())[1]
+        replay = cuda_ms(lambda: vg(u))
+        adam_ms = cuda_ms(lambda: opt.update(grads, state))
+        log(f"  {what}: device busy {busy:.4f} ms a step: a replay "
+            f"{replay_busy:.4f}, Adam over {len(params)} tensors "
+            f"{adam_busy:.4f}, the rest (the guide's forward and backward, "
+            f"the draws, the losses) {busy - replay_busy - adam_busy:.4f} "
+            f"ms; alone, CUDA events: a replay {replay:.4f} ms, an Adam "
+            f"update {adam_ms:.4f} ms")
+        return busy, replay_busy, adam_busy, replay, adam_ms
+
+    for fn in counters:
+        fn.launches = 0
+    counters[0].design_launches = {"thread": 0, "block": 0}
+    t_all = time.perf_counter()
+    pm = shared_params_lqg_model(x_fit, BoundedActor, shared_params=SHARED)
+    D = len(pm.names)
+
+    # the MAP: a first call captures the value+grad at one point; the timed
+    # call replays it at every step, with no host synchronization
+    optimize(pm, steps=2, step_size=MAP_STEP_SIZE)
+    (map_params, losses), ms = loop_ms(lambda: without_sync(
+        lambda: optimize(pm, steps=MAP_STEPS, step_size=MAP_STEP_SIZE)))
+    losses = losses.cpu()
+    require(losses.shape == (MAP_STEPS,) and bool(torch.isfinite(
+        losses).all()) and float(losses[-1]) < float(losses[0]),
+        f"MAP: losses {losses[:3]} ... {losses[-3:]}")
+    log(f"[{card}] MAP, optimize({MAP_STEPS} steps, step size "
+        f"{MAP_STEP_SIZE}) on {CONDITIONS} conditions x {LL_TRIALS} trials at "
+        f"T={T_FIT}, D={D}, under set_sync_debug_mode('error'): "
+        f"{ms / MAP_STEPS:.4f} ms a step (CUDA events); potential "
+        f"{float(losses[0]):.2f} -> {float(losses[-1]):.2f} (decrease "
+        f"{float(losses[0] - losses[-1]):.2f})")
+    u1 = pm.init_unconstrained()[None]
+    times["map"] = (ms / MAP_STEPS,) + split(
+        "MAP", lambda: optimize(pm, steps=5, step_size=MAP_STEP_SIZE), 5,
+        graph_of(pm, 1), u1, [u1])
+    pm.init = dict(map_params)
+
+    # the IAF guide: every step one replay at 16 points (96 parameter sets)
+    t0 = time.perf_counter()
+    iaf, iaf_losses = fit_auto_iaf(pm, 1, steps=IAF_STEPS)
+    torch.cuda.synchronize()
+    iaf_s = time.perf_counter() - t0
+    iaf_losses = iaf_losses.cpu()
+    finite = torch.isfinite(iaf_losses)
+    leaves = [iaf.loc, iaf.log_scale, *(x for l in iaf.layers for x in l)]
+    require(all(bool(torch.isfinite(x).all()) for x in leaves)
+            and int(finite.sum()) > IAF_STEPS // 2,
+            f"IAF fit: {int(finite.sum())} finite losses of {IAF_STEPS}")
+    step_ms = iaf_s * 1e3 / IAF_STEPS
+    tail = iaf_losses[-100:][torch.isfinite(iaf_losses[-100:])]
+    log(f"[{card}] IAF guide, fit_auto_iaf({IAF_STEPS} steps, 16 particles "
+        f"= 96 parameter sets): {iaf_s:.2f} s, {step_ms:.4f} ms a step (host "
+        f"clock, the capture included); {IAF_STEPS - int(finite.sum())}"
+        f" steps skipped (not finite); loss {float(iaf_losses[0]):.2f} -> "
+        f"mean of the last 100 {float(tail.mean()):.2f}, final ELBO "
+        f"{-float(tail[-1]):.2f}")
+    times["iaf"] = (step_ms,) + split(
+        "IAF", lambda: fit_auto_iaf(pm, 1, steps=5), 5, graph_of(pm, 16),
+        pm.init_unconstrained().expand(16, D).contiguous(), leaves)
+
+    # the ELBO through the graph (float32) against eager float64 on one eps
+    eps = torch.randn((16, D), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+
+    def elbo(model, guide, potential):
+        params = [x.detach().requires_grad_() for x in
+                  (guide.loc, guide.log_scale,
+                   *(x for l in guide.layers for x in l))]
+        layers = tuple(type(guide.layers[0])(*params[k:k + 8])
+                       for k in range(2, len(params), 8))
+        g = guide._replace(loc=params[0], log_scale=params[1], layers=layers)
+        u, ld = g.transform_and_logdet(eps.to(params[0].dtype))
+        loss = -torch.mean(-potential(model, u) + ld)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    lg, gg = elbo(pm, iaf, lambda m, u: GraphedPotential.apply(u, m))
+    pm64 = shared_params_lqg_model(x_fit.double(), BoundedActor,
+                                   shared_params=SHARED)
+    pm64.init = {k: v.double() for k, v in pm.init.items()}
+    iaf64 = type(iaf)(
+        loc=iaf.loc.double(), log_scale=iaf.log_scale.double(),
+        layers=tuple(type(l)(*(x.double() for x in l)) for l in iaf.layers),
+        masks=tuple(tuple(m.double() for m in ms) for ms in iaf.masks))
+    le, ge = elbo(pm64, iaf64, lambda m, u: m.potential(u))
+    val_err = float(abs(lg.double() - le) / abs(le))
+    grad_err = max(float(((a.double() - b).abs() / (
+        POT_GRAD_RTOL * b.abs() + ELBO_GRAD_SCALED * b.abs().max())).max())
+        for a, b in zip(gg, ge))
+    log(f"graphed ELBO (float32) vs eager float64 on one eps, 16 particles: "
+        f"value rel err {val_err:.3e} (rtol {POT_RTOL}) of |ELBO| "
+        f"{float(le):.2f}; gradient, largest share of the allowed error "
+        f"{grad_err:.3f} (rtol {POT_GRAD_RTOL} + {ELBO_GRAD_SCALED} x each "
+        f"leaf's max)")
+    require(val_err <= POT_RTOL and grad_err <= 1.0,
+            f"graphed ELBO vs float64: value {val_err}, gradient {grad_err}")
+    del pm64, iaf64, ge, gg
+
+    # the Gaussian guide: 8 particles (48 parameter sets)
+    t0 = time.perf_counter()
+    mvn, mvn_losses = fit_auto_mvn(pm, 2, steps=MVN_STEPS)
+    torch.cuda.synchronize()
+    mvn_s = time.perf_counter() - t0
+    mvn_losses = mvn_losses.cpu()
+    require(bool(torch.isfinite(mvn_losses).all()
+                 and torch.isfinite(mvn.scale_tril).all()),
+            "MVN fit: not finite")
+    step_ms = mvn_s * 1e3 / MVN_STEPS
+    log(f"[{card}] MVN guide, fit_auto_mvn({MVN_STEPS} steps, 8 particles = "
+        f"48 parameter sets): {mvn_s:.2f} s, {step_ms:.4f} ms a step (host "
+        f"clock, the capture included); loss {float(mvn_losses[0]):.2f} -> "
+        f"{float(mvn_losses[-1]):.2f}, final ELBO "
+        f"{-float(mvn_losses[-1]):.2f}")
+    times["mvn"] = (step_ms,) + split(
+        "MVN", lambda: fit_auto_mvn(pm, 2, steps=5), 5, graph_of(pm, 8),
+        pm.init_unconstrained().expand(8, D).contiguous(),
+        [mvn.loc, mvn.loc, mvn.scale_tril])
+
+    # the Laplace guide at the MAP: the Hessian on the scans
+    lm = pm
+    if LAPLACE_T != T_FIT:
+        lm = shared_params_lqg_model(x_fit[:, :, :LAPLACE_T + 1],
+                                     BoundedActor, shared_params=SHARED)
+        lm.init = dict(pm.init)
+    t0 = time.perf_counter()
+    lap, w = laplace_guide(lm)
+    torch.cuda.synchronize()
+    lap_s = time.perf_counter() - t0
+    times["laplace_s"] = lap_s
+    require(bool(torch.isfinite(w).all() and (w > 0).all()
+                 and torch.isfinite(lap.scale_tril).all())
+            and lm.method == "auto", f"laplace: eigenvalues {w}")
+    sds = torch.sqrt(torch.diagonal(lap.scale_tril @ lap.scale_tril.mT))
+    log(f"[{card}] laplace_guide at the MAP ({CONDITIONS} x {LL_TRIALS} "
+        f"trials at T={LAPLACE_T}, the scans, {D} backward passes through "
+        f"the double-backward graph): {lap_s:.2f} s (host clock); "
+        f"eigenvalues {float(w[0]):.4g} to {float(w[-1]):.4g}; posterior sds "
+        f"{[round(float(v), 5) for v in sds]}")
+    del lm, lap
+
+    # NeuTra: the IAF's warped space, a polish there, then NUTS on 4 chains
+    reparam = neutra_reparam(pm, iaf)
+    t0 = time.perf_counter()
+    _, pol_losses, eps_map = optimize(reparam, steps=POLISH_STEPS,
+                                      step_size=POLISH_STEP_SIZE,
+                                      return_unconstrained=True)
+    torch.cuda.synchronize()
+    pol_s = time.perf_counter() - t0
+    reparam.init_eps = eps_map
+    vgp = graph_of(reparam, 1)
+    replay_p = cuda_ms(lambda: vgp(eps_map[None]))
+    pol_losses = pol_losses.cpu()
+    require(bool(torch.isfinite(pol_losses).all()
+                 and torch.isfinite(eps_map).all()), "polish: not finite")
+    times["polish"] = (pol_s * 1e3 / POLISH_STEPS, replay_p, None)
+    log(f"[{card}] warped-space polish, optimize({POLISH_STEPS} steps) on "
+        f"the reparametrized model: {pol_s:.2f} s with the capture, "
+        f"{pol_s * 1e3 / POLISH_STEPS:.4f} ms a step; a replay of the flow "
+        f"and the potential {replay_p:.4f} ms; potential "
+        f"{float(pol_losses[0]):.2f} -> {float(pol_losses[-1]):.2f}, "
+        f"|eps_map| {float(eps_map.norm()):.3f}")
+
+    t0 = time.perf_counter()
+    mcmc = MCMC(reparam, num_warmup=NEUTRA_WARMUP, num_samples=NEUTRA_SAMPLES,
+                num_chains=CHAINS, max_depth=NEUTRA_DEPTH).run(4)
+    torch.cuda.synchronize()
+    nuts_s = time.perf_counter() - t0
+    vg = mcmc.value_and_grad
+    require(isinstance(vg, GraphedValueAndGrad) and vg.replays > 0,
+            "NeuTra NUTS: the leapfrogs did not replay the captured graph")
+    z = mcmc._samples_u[:, -1].to(dev)
+    replay = cuda_ms(lambda: vg(z))
+    samples = mcmc.get_samples(group_by_chain=True)
+    rhat = {}
+    for name, v in samples.items():
+        v = v.double().numpy()
+        require(v.shape == (CHAINS, NEUTRA_SAMPLES)
+                and bool(np.isfinite(v).all()) and bool((v > 0).all()),
+                f"NeuTra NUTS: {name} samples {v.shape}, not finite or "
+                f"positive")
+        rhat[name] = round(split_rhat(v), 4)
+    depth = mcmc.get_extra_fields()["tree_depth"]
+    times["leapfrog"] = (nuts_s * 1e3 / vg.replays, replay, None)
+    log(f"[{card}] NeuTra NUTS, {CHAINS} chains, {NEUTRA_WARMUP} warmup + "
+        f"{NEUTRA_SAMPLES} samples, max_depth={NEUTRA_DEPTH}: {nuts_s:.2f} s "
+        f"with the capture, {vg.replays} leapfrogs (replays), "
+        f"{nuts_s * 1e3 / vg.replays:.4f} ms a leapfrog against "
+        f"{replay:.4f} ms a replay alone (the flow, the potential and "
+        f"autograd in one graph); divergences {mcmc.divergences}; kept "
+        f"draws' tree depth mean {float(depth.mean()):.2f}, max "
+        f"{int(depth.max())}; split R-hat {rhat}")
+    launches = {k: fn.launches for k, fn in zip(names, counters)}
+    designs = dict(counters[0].design_launches)
+    log(f"phase 17: {time.perf_counter() - t_all:.1f} s; launches (warm-ups "
+        f"and captures) {launches}, K1 by design {designs}")
+    require(all(v > 0 for v in launches.values()),
+            f"the fit pipeline bypassed a kernel: {launches}")
+    launches["gains_fwd"] = designs["thread"]
+    launches["gains_fwd_block"] = designs["block"]
+    return launches, times
 
 
 def main() -> int:
@@ -2202,6 +2609,21 @@ def main() -> int:
          "cluster": dgrad_cluster["ll_blocked_bwd"],
          "ms_by_shape": by_shape["K6 ll_blocked_bwd"]},
     ]
+    # 17. scripts/fit_data.py's pipeline: point estimation, the guides and
+    # NeuTra NUTS, each step replaying a captured graph; K1-K4 at the
+    # parameter sets it launches them at
+    fit_ms = fit_batches(dev, card, x_fit)
+    fit_launches, fit_times = fit_pipeline(dev, card, counters, names, x_fit)
+    for entry in kernels:
+        if entry["name"] in fit_launches:
+            entry["fit_pipeline_launches"] = fit_launches[entry["name"]]
+        rows = fit_ms.get(entry["name"])
+        if rows:
+            entry["fit_shapes"] = {k: {"ms": v[0], "bound_ms": v[1],
+                                       "bound_by": v[2], "max_abs_err": v[3]}
+                                   for k, v in rows.items()}
+    log(f"fit pipeline ms a step (step; device busy a step, of a replay, of "
+        f"Adam; alone a replay, Adam): {json.dumps(fit_times)}")
     log(f"zoo launches (phase 15): {json.dumps(zoo_launches)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -15,8 +15,10 @@ and the same path for the subjective actor and the delay-register family
 whose large joint state goes through the blocked likelihood kernels, and for
 the rest of the model zoo (``PointMassBoundedActor``,
 ``HandMotionModelTrackingTask``, ``SignalDependentNoiseActor``), all in
-:mod:`lqg_tpu_torch.models`.  NUTS (:func:`lqg_tpu_torch.infer.infer`)
-replays the potential's value and gradient from a CUDA graph.
+:mod:`lqg_tpu_torch.models`.  NUTS (:func:`lqg_tpu_torch.infer.infer`),
+point estimation, the variational guides and NeuTra
+(:mod:`lqg_tpu_torch.infer.svi`, :mod:`lqg_tpu_torch.infer.flows`) replay
+the potential's value and gradient from CUDA graphs.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
 """Carry parameters from the JAX package across to the port.
 
 Specs cross as mappings of numpy arrays, e.g.
-``{k: np.asarray(v) for k, v in jax_spec._asdict().items()}``: numpy is the
-common ground, so nothing here imports JAX.  The ``zero_affine`` flag is set
-from the arrays' values.
+``{k: np.asarray(v) for k, v in jax_spec._asdict().items()}``, and guides
+as the JAX guide with numpy leaves, ``jax.tree.map(np.asarray, guide)``:
+numpy is the common ground, so nothing here imports JAX.  The
+``zero_affine`` flag is set from the arrays' values.
 """
 
 from __future__ import annotations
@@ -48,3 +49,25 @@ def system_from_numpy(actor: Mapping[str, np.ndarray],
                   control_noise=None if control_noise is None else
                   torch.tensor(np.asarray(control_noise), dtype=dtype,
                                device=device))
+
+
+def guide_from_numpy(guide, device=None, dtype=torch.float32):
+    """The port's guide from a JAX ``AutoMVN`` (fields ``loc``,
+    ``scale_tril``) or ``AutoIAF`` (``loc``, ``log_scale``, ``layers`` of
+    eight arrays each, ``masks`` of three each) whose leaves are numpy
+    arrays; the masks are carried as they are, in ``dtype``."""
+    from lqg_tpu_torch.infer.flows import AutoIAF, IAFLayerParams
+    from lqg_tpu_torch.infer.svi import AutoMVN
+
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    if hasattr(guide, "scale_tril"):
+        return AutoMVN(loc=t(guide.loc), scale_tril=t(guide.scale_tril))
+    return AutoIAF(
+        loc=t(guide.loc), log_scale=t(guide.log_scale),
+        layers=tuple(IAFLayerParams(*(t(a) for a in layer))
+                     for layer in guide.layers),
+        masks=tuple(tuple(t(m) for m in masks) for masks in guide.masks))

@@ -1,13 +1,16 @@
 """Inference layer of the port (counterpart of :mod:`lqg_tpu.infer`): the
 distributions, transforms, priors and probabilistic models whose potential
-NUTS, SVI and MLE differentiate, and NUTS itself (``infer``, ``MCMC``, the
-diagnostics).  SVI, the flows and MLE come with a later slice."""
+NUTS, SVI and MLE differentiate; NUTS itself (``infer``, ``MCMC``, the
+diagnostics); point estimation and variational guides
+(:mod:`~lqg_tpu_torch.infer.svi`, :mod:`~lqg_tpu_torch.infer.flows`,
+``max_likelihood``) and NeuTra (``infer(method="neutra")``)."""
 
 from lqg_tpu_torch.infer.diagnostics import ess, split_rhat
 from lqg_tpu_torch.infer.dists import (Distribution, GaussianSequence,
                                        HalfNormal, LogNormal,
                                        MultivariateNormal, Normal, Uniform)
 from lqg_tpu_torch.infer.mcmc import MCMC
+from lqg_tpu_torch.infer.mle import max_likelihood
 from lqg_tpu_torch.infer.models import (ProbModel, common_lqg_model,
                                         get_model_params, lifted_model,
                                         lqg_model, shared_params_lqg_model)
@@ -29,7 +32,7 @@ __all__ = [
     "Uniform", "common_lqg_model", "default_prior", "ess",
     "get_model_params", "identity", "infer", "lifted_model",
     "lognormal_from_quantiles", "lognormal_params", "lqg_model",
-    "neutra_reparam", "positive", "prior", "register_prior",
+    "max_likelihood", "neutra_reparam", "positive", "prior", "register_prior",
     "sample_from_prior", "sample_params", "shared_params_lqg_model",
     "split_rhat",
 ]

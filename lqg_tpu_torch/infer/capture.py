@@ -15,6 +15,11 @@ call runs eagerly.
 The graph holds the kernels' launches (K1-K4 on the bounded actor's fused
 route) as nodes, so a replay does not advance the wrappers' launch counters:
 count a replay's kernels with ``torch.profiler``.
+
+The optimizers and the ELBO of :mod:`lqg_tpu_torch.infer.svi` and
+:mod:`~lqg_tpu_torch.infer.flows` differentiate with respect to other
+parameters through ``u``: :class:`GraphedPotential` puts the replayed value
+and gradient into their autograd graph.
 """
 
 from __future__ import annotations
@@ -98,3 +103,28 @@ def value_and_grad_fn(potential: Callable, u0: torch.Tensor) -> Callable:
     if u0.device.type != "cpu":
         raise ValueError(f"unsupported device {u0.device}")
     return eager_value_and_grad(potential)
+
+
+class GraphedPotential(torch.autograd.Function):
+    """``pe (C,)`` of a model's potential at ``u (C, D)``, as a node of an
+    outer autograd graph (a guide's parameters -> ``u`` -> ``pe``).
+
+    The forward calls :meth:`ProbModel.value_and_grad
+    <lqg_tpu_torch.infer.models.ProbModel.value_and_grad>`: on the card one
+    replay of the graph captured for this ``C`` (the first call captures
+    it), eagerly on the CPU.  It keeps the gradient, and the backward
+    returns ``gpe[:, None] * grad``: no second evaluation of the
+    potential.  Call it as ``GraphedPotential.apply(u, model)``.
+    """
+
+    @staticmethod
+    def forward(ctx, u, model):
+        pe, grad = model.value_and_grad(u.detach())
+        ctx.save_for_backward(grad)
+        return pe
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gpe):
+        (grad,) = ctx.saved_tensors
+        return gpe[:, None] * grad, None

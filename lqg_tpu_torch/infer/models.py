@@ -22,12 +22,13 @@ gradient is one launch of each kernel.
 from __future__ import annotations
 
 import inspect
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
 from lqg_tpu_torch.infer import transforms as tfm
+from lqg_tpu_torch.infer.capture import value_and_grad_fn
 from lqg_tpu_torch.infer.dists import Distribution
 from lqg_tpu_torch.infer.priors import DEFAULT_PRIOR
 from lqg_tpu_torch.utils.numerics import kahan_sum
@@ -71,6 +72,16 @@ class ProbModel:
     # ~0.03 nats at the data.mat fit's ~3e5-nat likelihood.  Setting it to
     # the MAP's likelihood keeps the returned value O(1-100).
     ll_baseline: float = 0.0
+    # How the model factories' likelihoods run, read at call time:
+    # ``"auto"`` (the kernels where they apply) or ``"scan"`` (the gains and
+    # likelihood scans, which autograd differentiates twice: the kernels'
+    # Functions are once differentiable), where the JAX package forces its
+    # scans with ``force_scan_dispatch``.
+    method: str = "auto"
+    # the potential's value+grad per batch shape, dtype and device (see
+    # :meth:`value_and_grad`)
+    value_and_grad_fns: dict = field(default_factory=dict, repr=False,
+                                     compare=False)
 
     @property
     def names(self) -> List[str]:
@@ -127,6 +138,23 @@ class ProbModel:
         (D,)``, ``(C,)`` for ``u (C, D)``."""
         return -self.log_joint_unconstrained(u)
 
+    def value_and_grad(self, u: torch.Tensor):
+        """``(pe (C,), grad (C, D))`` of the potential at ``u (C, D)``.
+
+        On the card the first call for a batch of ``C`` captures the value
+        and gradient in a CUDA graph (:class:`~lqg_tpu_torch.infer.capture.
+        GraphedValueAndGrad`), kept in ``value_and_grad_fns`` and replayed
+        by every later call with that shape: the optimizers and the ELBO
+        call it at every step.  The graph holds the potential as it was
+        captured: set ``ll_baseline`` and ``method`` before the first call.
+        On the CPU it runs eagerly."""
+        key = (tuple(u.shape), u.dtype, u.device)
+        fn = self.value_and_grad_fns.get(key)
+        if fn is None:
+            fn = value_and_grad_fn(self.potential, u)
+            self.value_and_grad_fns[key] = fn
+        return fn(u)
+
 
 def _lead(params: Dict[str, torch.Tensor]) -> torch.Size:
     """The chain axes the parameter values share: ``()`` or ``(C,)``."""
@@ -139,15 +167,25 @@ def _total(lls: torch.Tensor, baseline: float) -> torch.Tensor:
     return kahan_sum(lls - baseline / lls.shape[-1], axis=-1)
 
 
+def _log_likelihood(lqg, x, method: str) -> torch.Tensor:
+    """``lqg.log_likelihood(x)`` with the kernels where they apply
+    (``"auto"``) or on the scans throughout, gains included (``"scan"``)."""
+    if method == "scan":
+        return lqg.log_likelihood(x, method="scan", gains_method="scan")
+    if method != "auto":
+        raise ValueError(f"method must be auto|scan, got {method!r}")
+    return lqg.log_likelihood(x)
+
+
 def lqg_model(x, model_type, process_noise=1.0, dt=1.0 / 60.0,
-              priors=None, **fixed_params) -> ProbModel:
+              priors=None, method="auto", **fixed_params) -> ProbModel:
     """Single-condition model over trials ``x (n, T+1, d)``: free params
     positive-constrained, likelihood over all trials (reference
     ``lqg/infer/models.py:20-34``).
 
     With ``priors=None`` this is the MLE objective; pass a prior dict (e.g.
     ``DEFAULT_PRIOR``) for the Bayesian model.  The model works on ``x``'s
-    device and dtype.
+    device and dtype; ``method`` is kept as :attr:`ProbModel.method`.
     """
     n, T, d = x.shape
     like = dict(dtype=x.dtype, device=x.device)
@@ -167,14 +205,14 @@ def lqg_model(x, model_type, process_noise=1.0, dt=1.0 / 60.0,
                     if n in used_priors else init[n]) for n in init}
 
     model = ProbModel(init=init, transforms=transforms,
-                      log_likelihood=None, priors=used_priors)
+                      log_likelihood=None, priors=used_priors, method=method)
 
     def log_likelihood(params):
         full = dict(fixed_params)
         full.update(params)
         lqg = model_type(process_noise=process_noise, dt=dt, T=T - 1,
                          **full, **like)
-        lls = lqg.log_likelihood(x)  # (n,) per trial, (C, n) for chains
+        lls = _log_likelihood(lqg, x, model.method)  # (n,), (C, n) chains
         return _total(lls, model.ll_baseline)
 
     model.log_likelihood = log_likelihood
@@ -182,15 +220,15 @@ def lqg_model(x, model_type, process_noise=1.0, dt=1.0 / 60.0,
 
 
 def lifted_model(x, model_type, process_noise=1.0, dt=1.0 / 60.0,
-                 **fixed_params) -> ProbModel:
+                 method="auto", **fixed_params) -> ProbModel:
     """:func:`lqg_model` with the default priors (reference
     ``lifted_model``, ``models.py:134-135``)."""
     return lqg_model(x, model_type, process_noise=process_noise, dt=dt,
-                     priors=DEFAULT_PRIOR, **fixed_params)
+                     priors=DEFAULT_PRIOR, method=method, **fixed_params)
 
 
 def common_lqg_model(x, model_type, process_noise=1.0, dt=1.0 / 60.0,
-                     priors=None, **fixed_params) -> ProbModel:
+                     priors=None, method="auto", **fixed_params) -> ProbModel:
     """Multi-condition model with shared parameters and per-condition target
     noise ``sigma_target_{c}`` (reference ``models.py:37-61``): the case of
     :func:`shared_params_lqg_model` where every free parameter except
@@ -198,12 +236,12 @@ def common_lqg_model(x, model_type, process_noise=1.0, dt=1.0 / 60.0,
     shared = [n for n in get_model_params(model_type) if n != "sigma_target"]
     return shared_params_lqg_model(
         x, model_type, process_noise=process_noise, dt=dt, priors=priors,
-        shared_params=shared, **fixed_params)
+        shared_params=shared, method=method, **fixed_params)
 
 
 def shared_params_lqg_model(x, model_type, process_noise=1.0, dt=1.0 / 60.0,
                             priors=None, shared_params=None, dim=1,
-                            **fixed_params) -> ProbModel:
+                            method="auto", **fixed_params) -> ProbModel:
     """Hierarchical multi-condition model over ``x (Nc, n, T+1, d)``
     (reference ``models.py:67-130``).
 
@@ -211,7 +249,8 @@ def shared_params_lqg_model(x, model_type, process_noise=1.0, dt=1.0 / 60.0,
     free parameter gets a per-condition latent ``f"{name}_{c}"``.  One call
     stacks the conditions' parameters (and the chains', for ``u (C, D)``)
     into ``P = C Nc`` parameter sets, builds one batched model and scores
-    ``x`` repeated per chain in one ``log_likelihood``.
+    ``x`` repeated per chain in one ``log_likelihood``.  ``method`` is
+    kept as :attr:`ProbModel.method`.
     """
     Nc, N, T, d = x.shape
     like = dict(dtype=x.dtype, device=x.device)
@@ -239,7 +278,7 @@ def shared_params_lqg_model(x, model_type, process_noise=1.0, dt=1.0 / 60.0,
             used_priors[site] = pr
 
     model = ProbModel(init=init, transforms=transforms,
-                      log_likelihood=None, priors=used_priors)
+                      log_likelihood=None, priors=used_priors, method=method)
     # the delay-register models fix dim=1 in their constructors; only
     # forward it where accepted
     dim_kw = ({"dim": dim}
@@ -261,7 +300,7 @@ def shared_params_lqg_model(x, model_type, process_noise=1.0, dt=1.0 / 60.0,
         lqg = model_type(process_noise=process_noise, dt=dt, T=T - 1,
                          **dim_kw, **full, **like)
         X = x.expand(lead + x.shape).reshape((-1,) + x.shape[1:])
-        lls = lqg.log_likelihood(X)  # (P, N)
+        lls = _log_likelihood(lqg, X, model.method)  # (P, N)
         return _total(lls.reshape(lead + (Nc * N,)), model.ll_baseline)
 
     model.log_likelihood = log_likelihood

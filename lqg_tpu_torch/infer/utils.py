@@ -1,9 +1,7 @@
 """Posterior inference entry points (port of :mod:`lqg_tpu.infer.utils`).
 
-``infer`` runs NUTS on the lifted model; ``sample_from_prior`` draws
-ground-truth parameters for recovery studies.  NeuTra (``method="neutra"``,
-:func:`neutra_reparam`) needs SVI and the normalizing flows, which come
-with ROADMAP Queue 1 item 11.
+``infer`` runs NUTS (or NeuTra-reparametrized NUTS) on the lifted model;
+``sample_from_prior`` draws ground-truth parameters for recovery studies.
 """
 
 from __future__ import annotations
@@ -16,9 +14,16 @@ from lqg_tpu_torch.infer.mcmc import MCMC
 from lqg_tpu_torch.infer.models import ProbModel, get_model_params, lifted_model
 
 
-def _not_ported(what: str):
-    from lqg_tpu_torch.system import _not_ported as not_ported
-    return not_ported(what, "item 11")
+def as_data(x, device=None) -> torch.Tensor:
+    """Trajectories as the entry points take them: a tensor keeps its dtype
+    and device (moved to ``device`` where named), an array becomes float32
+    on ``device`` (the card unless named)."""
+    if not torch.is_tensor(x):
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=resolve_device(device))
+    if device is not None:
+        return x.to(resolve_device(device))
+    return x
 
 
 def infer(x, num_samples, num_warmup, model=None, model_fn=lifted_model,
@@ -36,7 +41,12 @@ def infer(x, num_samples, num_warmup, model=None, model_fn=lifted_model,
         model: model class (defaults to ``BoundedActor``).
         model_fn: a function returning a :class:`ProbModel` (default: the
             prior-lifted single-condition model).
-        method: ``"nuts"``; ``"neutra"`` is not ported yet.
+        method: ``"nuts"`` or ``"neutra"`` (NUTS on a variationally
+            preconditioned space, :func:`neutra_reparam`).
+        neutra_guide: preconditioner family for ``method="neutra"``:
+            ``"iaf"`` (:func:`lqg_tpu_torch.infer.flows.fit_auto_iaf`) or
+            ``"mvn"`` (:func:`lqg_tpu_torch.infer.svi.fit_auto_mvn`), fitted
+            for ``neutra_steps`` steps from ``seed``.
         num_chains: chains, one batch of the potential (default 4, as the
             reference CLIs' ``--nchain 4``).
         seed: the run's seed (:class:`lqg_tpu_torch.infer.mcmc.Draws`).
@@ -45,24 +55,29 @@ def infer(x, num_samples, num_warmup, model=None, model_fn=lifted_model,
         mcmc_kwargs: extra :class:`MCMC` constructor options.
 
     Returns a run :class:`MCMC` object (``get_samples``, ``summary``...).
-    On the card every leapfrog replays the potential's captured value and
-    gradient; on the CPU it runs eagerly.
+    On the card every guide-fit step and every leapfrog replays the
+    potential's captured value and gradient; on the CPU it runs eagerly.
     """
     if model is None:
         from lqg_tpu_torch.models import BoundedActor as model
-    if method == "neutra":
-        raise _not_ported("method='neutra'")
-    if method != "nuts":
+    if method not in ("nuts", "neutra"):
         raise ValueError(
             "Please specify a valid inference method (nuts, neutra).")
-    if not torch.is_tensor(x):
-        x = torch.as_tensor(x, dtype=torch.float32,
-                            device=resolve_device(device))
-    elif device is not None:
-        x = x.to(resolve_device(device))
+    prob_model = model_fn(as_data(x, device), model,
+                          process_noise=process_noise, dt=dt, **fixed)
 
-    prob_model = model_fn(x, model, process_noise=process_noise, dt=dt,
-                          **fixed)
+    if method == "neutra":
+        if neutra_guide == "iaf":
+            from lqg_tpu_torch.infer.flows import fit_auto_iaf as fit_guide
+        elif neutra_guide == "mvn":
+            from lqg_tpu_torch.infer.svi import fit_auto_mvn as fit_guide
+        else:
+            raise ValueError(
+                "neutra_guide must be 'iaf' or 'mvn', got "
+                f"{neutra_guide!r}")
+        guide, _ = fit_guide(prob_model, seed, steps=neutra_steps)
+        prob_model = neutra_reparam(prob_model, guide)
+
     mcmc = MCMC(prob_model, num_warmup=num_warmup, num_samples=num_samples,
                 num_chains=num_chains, max_depth=max_depth,
                 progress=progress_bar, **(mcmc_kwargs or {}))
@@ -71,8 +86,38 @@ def infer(x, num_samples, num_warmup, model=None, model_fn=lifted_model,
 
 
 def neutra_reparam(model: ProbModel, guide) -> ProbModel:
-    """NeuTra preconditioning through a fitted guide: not ported yet."""
-    raise _not_ported("neutra_reparam")
+    """Precondition a model through a fitted guide transform (NeuTra).
+
+    NUTS runs in the guide's standardized space ``eps``; positions map back
+    through the guide's forward transform ``u = f(eps)`` (affine for
+    :class:`~lqg_tpu_torch.infer.svi.AutoMVN`, a masked autoregressive flow
+    for :class:`~lqg_tpu_torch.infer.flows.AutoIAF`), and the density picks
+    up the transform's log-Jacobian.  The returned model's potential is the
+    flow and the LQG potential together, so :class:`MCMC` captures both and
+    autograd in one CUDA graph.  Chains start at ``eps = 0`` unless a caller
+    assigns ``init_eps`` (e.g. a warped-space MAP polish).
+    """
+    reparam = ProbModel(init=dict(model.init),
+                        transforms=dict(model.transforms),
+                        log_likelihood=model.log_likelihood,
+                        priors=model.priors)
+    base_log_joint = model.log_joint_unconstrained
+    loc = guide.loc
+
+    def log_joint_eps(eps):
+        u, logdet = guide.transform_and_logdet(eps)
+        return base_log_joint(u) + logdet
+
+    def constrain(eps):
+        # draws come back to the host; the guide stays on its device
+        u = guide.transform(eps.to(device=loc.device, dtype=loc.dtype))
+        return model.constrain(u.to(eps.device))
+
+    reparam.log_joint_unconstrained = log_joint_eps
+    reparam.init_eps = torch.zeros_like(loc)
+    reparam.init_unconstrained = lambda: reparam.init_eps
+    reparam.constrain = constrain
+    return reparam
 
 
 def sample_from_prior(model_type, seed, prior_dict=None,

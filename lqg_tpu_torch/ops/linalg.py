@@ -63,11 +63,36 @@ def regularize_spd(H: torch.Tensor, eps: float, mode: str) -> torch.Tensor:
         lift = eps * (scale + 1e-30)
         return H + lift[..., None, None] * _eye_like(H)
     if mode == "eigh":
-        # eigvalsh checks convergence on the host: a sync on the card
-        evals = torch.linalg.eigvalsh(H)
-        lift = torch.clamp(eps - evals[..., 0], min=0.0)
+        lift = torch.clamp(eps - smallest_eigenvalue(H), min=0.0)
         return H + lift[..., None, None] * _eye_like(H)
     raise ValueError(f"unknown regularization mode: {mode!r}")
+
+
+def smallest_eigenvalue(H: torch.Tensor) -> torch.Tensor:
+    """The smallest eigenvalue of symmetric ``H (..., m, m)``, computed on
+    the device with nothing read on the host (``torch.linalg.eigvalsh``
+    checks its error code there, so a CUDA graph cannot capture it).
+
+    ``m = 1``: the entry.  ``m = 2``: closed form on ``(H + H^T) / 2``, as
+    ``jnp.linalg.eigvalsh`` symmetrizes, written as ``min(a, d) - b^2 /
+    (|a - d| / 2 + r)`` so that a diagonal ``H`` gives its smaller entry
+    exactly.  ``m > 2``: :func:`eigh_jacobi`.  At ``m >= 2`` a non-finite
+    entry anywhere gives NaN, as LAPACK's symmetric eigensolver gives for
+    ``jnp.linalg.eigvalsh`` (``[[nan, 0], [0, 1]]`` -> ``[nan, 1]``,
+    ``[[inf, 0], [0, 1]]`` -> ``[nan, nan]``)."""
+    m = H.shape[-1]
+    if m == 1:
+        return H[..., 0, 0]
+    if m == 2:
+        a, d = H[..., 0, 0], H[..., 1, 1]
+        b = 0.5 * (H[..., 0, 1] + H[..., 1, 0])
+        h = 0.5 * (a - d).abs()
+        den = h + torch.sqrt(h * h + b * b)
+        lam = torch.minimum(a, d) - b * b / torch.where(den == 0, 1.0, den)
+    else:
+        lam = eigh_jacobi(symmetrize(H))[0].amin(-1)
+    finite = torch.isfinite(H).all(-1).all(-1)
+    return torch.where(finite, lam, torch.nan)
 
 
 # jax.scipy.linalg.expm's Pade numerator coefficients b_0..b_m by degree m
@@ -210,8 +235,14 @@ class _ClipSpectrum(torch.autograd.Function):
         return (Vec * g[..., None, :]) @ mT(Vec)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, Fbar):
+        if torch.is_grad_enabled():  # a second derivative: no Hessian
+            raise NotImplementedError(
+                "make_psd's eigenvalue clip is differentiable once; a "
+                "second derivative (a Hessian of a potential through it, "
+                "e.g. laplace_guide on the point mass) would lack the "
+                "eigenvector terms and is not ported (ROADMAP.md Queue 3, "
+                "the point-mass Hessian)")
         w, g, Vec = ctx.saved_tensors
         dw = w[..., :, None] - w[..., None, :]
         same = dw == 0

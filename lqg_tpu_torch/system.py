@@ -281,8 +281,9 @@ class System:
                 f"is T={self.horizon} (expected T+1={self.horizon + 1} steps "
                 f"including the initial state)")
 
-    def _joint(self, Sigma0=None) -> gaussian.JointSystem:
-        gains, K = self.gains(Sigma0)
+    def _joint(self, Sigma0=None,
+               gains_method: str = "auto") -> gaussian.JointSystem:
+        gains, K = self.gains(Sigma0, method=gains_method)
         return gaussian.joint_system(self.dynamics, self.actor, gains.L, K,
                                      self.horizon)
 
@@ -308,7 +309,8 @@ class System:
         Sigma = Sigma[None, :, :d, :d].expand(n, Tp1 - 1, d, d)
         return GaussianSequence(mu[..., :d], Sigma)
 
-    def log_likelihood(self, x, Sigma0=None, method: str = "auto"):
+    def log_likelihood(self, x, Sigma0=None, method: str = "auto",
+                       gains_method: str = "auto"):
         """Per-trial log likelihood ``(n,)`` of ``x[:, 1:]`` given the model;
         ``(P, n)`` for a System of ``P`` parameter sets, whose trajectories
         ``x (P, n, T+1, d)`` may broadcast along ``P``.  Differentiable on
@@ -321,6 +323,10 @@ class System:
                 (:func:`gaussian.conditional_kernel` and
                 :func:`gaussian.trial_log_likelihood`).  ``"pscan"`` is not
                 ported yet.
+            gains_method: the :meth:`gains` method.  ``"scan"`` with
+                ``method="scan"`` keeps the whole likelihood on the scans,
+                which autograd differentiates twice (a Hessian), where
+                ``lqg_tpu`` forces the scans with ``force_scan_dispatch``.
         """
         d = x.shape[-1]
         self._check_obs(x)
@@ -329,7 +335,7 @@ class System:
         # trajectories shared by the parameter sets: autograd sums along P
         x = x.expand(torch.broadcast_shapes(self.batch_shape, x.shape[:-3])
                      + x.shape[-3:])
-        joint = self._joint(Sigma0)
+        joint = self._joint(Sigma0, gains_method)
         if method == "auto":
             method = ("fused" if self._fused_ll_ok(joint.F, x)
                       else "blocked" if self._blocked_ll_ok(joint.F, x)

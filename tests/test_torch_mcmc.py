@@ -209,8 +209,8 @@ def test_mcmc_defaults_and_not_ported_options():
 
 
 def test_infer_and_sample_from_prior_on_the_cpu():
-    """``infer(method="nuts")`` through the lifted bounded actor, eager on
-    the CPU; ``neutra`` is not ported yet."""
+    """``infer(method="nuts")`` and ``infer(method="neutra")`` through the
+    lifted bounded actor, eager on the CPU."""
     params = sample_from_prior(tmodels.BoundedActor, 0, device="cpu")
     assert sorted(params) == sorted(get_model_params(tmodels.BoundedActor))
     assert all(float(v) > 0 for v in params.values())
@@ -222,8 +222,13 @@ def test_infer_and_sample_from_prior_on_the_cpu():
     assert sorted(samples) == sorted(params)
     assert all(v.shape == (2, 3) and torch.isfinite(v).all()
                for v in samples.values())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        infer(x, 4, 4, method="neutra", device="cpu")
+    neutra = infer(x, num_samples=3, num_warmup=3, method="neutra",
+                   neutra_steps=10, num_chains=2, max_depth=2,
+                   progress_bar=False, device="cpu")
+    samples = neutra.get_samples(group_by_chain=True)
+    assert sorted(samples) == sorted(params)
+    assert all(v.shape == (2, 3) and torch.isfinite(v).all()
+               and (v > 0).all() for v in samples.values())
     with pytest.raises(ValueError):
         infer(x, 4, 4, method="hmc", device="cpu")
 

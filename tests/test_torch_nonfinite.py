@@ -4,20 +4,21 @@ package: the Riccati and Kalman scans, the conditioned likelihood's
 covariance recursion and the dense normal's factor.  JAX's NUTS counts a
 NaN energy as a divergence, so a bad proposal must not abort a chain.
 
-All on the CPU in float64, against ``lqg_tpu`` on the same trials."""
+All on the CPU in float64, against ``lqg_tpu`` on the same trials; and
+``regularize_spd(mode="eigh")`` against ``lqg_tpu``'s, with (``-m cuda``,
+on the card) a gains scan that waits on nothing.  JAX is imported inside
+the tests that compare with it, so that the card's test runs where JAX is
+not installed (``--noconftest``)."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from lqg_tpu import models as jmodels
-from lqg_tpu.infer import models as jinfer
 from lqg_tpu_torch import infer as tinfer
 from lqg_tpu_torch import models as tmodels
 from lqg_tpu_torch.infer import dists as tdists
 from lqg_tpu_torch.ops import kalman, riccati
+from lqg_tpu_torch.ops.linalg import regularize_spd
 
 T = 50
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -37,19 +38,26 @@ PROBE_IDS = ["action_cost_nan", "sigma_target_inf", "noise_1e-300",
 
 
 def _trials(n=3, seed=0):
+    import jax
+    from lqg_tpu import models as jmodels
+
     return np.asarray(jmodels.BoundedActor(T=T).simulate(
         jax.random.PRNGKey(seed), n=n))
 
 
-def _same_nans_and_values(got, want, rtol=1e-10):
+def _same_nans_and_values(got, want, rtol=1e-10, atol=0.0):
     got, want = np.asarray(got), np.asarray(want)
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     finite = np.isfinite(want)
-    np.testing.assert_allclose(got[finite], want[finite], rtol=rtol)
+    np.testing.assert_allclose(got[finite], want[finite], rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.parametrize("params", PROBES, ids=PROBE_IDS)
 def test_log_likelihood_is_nan_where_jax_is(params, x64):
+    import jax.numpy as jnp
+    from lqg_tpu import models as jmodels
+
     x = _trials()
     want = np.asarray(jmodels.BoundedActor(T=T, **params).log_likelihood(
         jnp.asarray(x)))
@@ -114,6 +122,11 @@ def test_potential_value_and_grad_match_jax_where_finite(x64):
     """The hierarchical potential over a batch of chains, two of which meet
     a non-finite parameter: NaN exactly where ``lqg_tpu.infer`` gives NaN,
     and the value and gradient of the other chains equal to it."""
+    import jax
+    import jax.numpy as jnp
+    from lqg_tpu import models as jmodels
+    from lqg_tpu.infer import models as jinfer
+
     x = np.stack([_trials(3, seed) for seed in (1, 2)])
     jm = jinfer.shared_params_lqg_model(jnp.asarray(x), jmodels.BoundedActor,
                                         shared_params=SHARED)
@@ -133,3 +146,93 @@ def test_potential_value_and_grad_match_jax_where_finite(x64):
     for c in (0, 2):
         np.testing.assert_allclose(grad[c].numpy(), jg[c], rtol=1e-10,
                                    atol=1e-9 * float(np.abs(jg[c]).max()))
+
+
+# --- regularize_spd(mode="eigh") ------------------------------------------
+
+# the probes at the two control dimensions: m = 1 (BoundedActor) and m = 2
+# (RelativeObservationBoundedActor(dim=2), one sensory noise ``sigma``)
+EIGH_MODELS = {
+    "m1": ("BoundedActor", {}, {}),
+    "m2": ("RelativeObservationBoundedActor", dict(dim=2),
+           dict(sigma_target="sigma", sigma_cursor=None)),
+}
+
+
+def _probe_for(params, rename):
+    out = {}
+    for k, v in params.items():
+        k = rename.get(k, k)
+        if k is not None:
+            out[k] = v
+    return out
+
+
+@pytest.mark.parametrize("which", sorted(EIGH_MODELS))
+@pytest.mark.parametrize("params", PROBES, ids=PROBE_IDS)
+def test_eigh_regularized_gains_match_jax(params, which, x64):
+    """The Riccati scan with ``regularize="eigh"`` on the four probe
+    parameter sets: NaN at the same entries as ``lqg_tpu``, the finite
+    entries within rtol 1e-12."""
+    from lqg_tpu import models as jmodels
+    from lqg_tpu.ops import riccati as jriccati
+
+    name, kw, rename = EIGH_MODELS[which]
+    p = _probe_for(params, rename)
+    want = jriccati.backward(getattr(jmodels, name)(T=T, **kw, **p).actor,
+                             horizon=T, regularize="eigh")
+    got = riccati.backward(getattr(tmodels, name)(T=T, **kw, **p,
+                                                  **F64).actor,
+                           horizon=T, regularize="eigh")
+    for field in ("L", "l", "H"):
+        _same_nans_and_values(getattr(got, field).numpy(),
+                              np.asarray(getattr(want, field)), rtol=1e-12)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+def test_regularize_spd_eigh_matches_jax(m, x64):
+    """Random symmetric matrices, many of them lifted (the smallest
+    eigenvalue below ``eps``), and the NaN probe ``[[nan, 0], [0, 1]]``,
+    whose result is all NaN in ``lqg_tpu``.  A lifted diagonal entry is
+    ``H_ii + eps - lambda_min``, and an eigenvalue is determined to a few
+    ulp of ``max |H|``: so each entry within rtol 1e-12 plus 1e-14 x
+    ``max |H|`` (a diagonal ``H`` gives the same bits)."""
+    import jax.numpy as jnp
+    from lqg_tpu.ops.linalg import regularize_spd as jregularize
+
+    rng = np.random.default_rng(m)
+    H = rng.normal(size=(64, m, m))
+    H = H + np.swapaxes(H, -1, -2) + np.eye(m) * rng.uniform(-1, 4, (64, 1, 1))
+    H[0] = np.diag(np.arange(1.0, m + 1) * -1e-3)  # diagonal, lifted
+    probes = [H]
+    if m >= 2:
+        nan = np.eye(m)
+        nan[0, 0] = np.nan
+        probes.append(nan[None])
+    for eps in (1e-6, 0.5):
+        for Hp in probes:
+            want = np.asarray(jregularize(jnp.asarray(Hp), eps, "eigh"))
+            got = regularize_spd(torch.tensor(Hp), eps, "eigh").numpy()
+            _same_nans_and_values(got, want, rtol=1e-12,
+                                  atol=1e-14 * np.nanmax(np.abs(Hp)))
+            np.testing.assert_array_equal(got[0], want[0])
+    if m >= 2:
+        assert np.isnan(want).all()
+
+
+@pytest.mark.cuda
+def test_eigh_regularized_gains_scan_waits_on_nothing_on_card():
+    """A ``regularize="eigh"`` gains scan on the card reads nothing on the
+    host, so a potential built with it can be captured in a CUDA graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for name, kw, _ in EIGH_MODELS.values():
+        spec = getattr(tmodels, name)(T=8, **kw, device="cuda").actor
+        riccati.backward(spec, horizon=8, regularize="eigh")  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gains = riccati.backward(spec, horizon=8, regularize="eigh")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.isfinite(gains.L).all()

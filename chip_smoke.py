@@ -112,17 +112,33 @@ beside it.  Phases, each fatal on failure:
     (K1-K4 launched by the warm-ups and the captures): the MAP,
     ``optimize`` for 300 steps at step size 0.05, each step a replay of the
     graph captured by a first call, under ``set_sync_debug_mode("error")``;
-    ``fit_auto_iaf`` for 3,000 steps of 16 particles, the graphed ELBO
-    (float32) against eager float64 on one ``eps``; ``fit_auto_mvn`` for
-    300 steps of 8 particles; ``laplace_guide`` at the MAP (the scans,
-    cut to T=360, the phase's one cut: 124.76 s at T=1008);
+    ``fit_auto_iaf`` for 1,500 steps of 16 particles (``fit_data.py``
+    takes 3,000), the graphed ELBO (float32) against eager float64 on one
+    ``eps``; ``fit_auto_mvn`` for 300 steps of 8 particles;
+    ``laplace_guide`` at the MAP (the scans, cut to T=180: 124.76 s at
+    T=1008);
     ``neutra_reparam`` with the IAF, a 200-step polish in the warped space
     and ``MCMC`` on 4 chains, 100 warmup + 100 samples, ``max_depth=8``,
     each leapfrog one replay of the flow, the potential and autograd.  It
     prints ms a step (CUDA events or the host clock) beside a replay alone
     and Adam alone, the potential's decrease, the final ELBO, the laplace
     time, ms a NeuTra leapfrog against a replay alone, divergences and
-    split R-hat.
+    split R-hat;
+18. the data and fit tools: a ``data.mat`` simulated by ``BoundedActor``
+    at the data's raw shape (6 blob widths x 20 trials x 1201 steps) read by
+    ``io.load_tracking_data`` (against the same preprocessing in numpy);
+    ``scripts/torch_fit_data.py``'s ``main`` on it (MAP, NUTS on 4 chains,
+    100 + 100 transitions, ``max_depth=8``), the counters zeroed just
+    before and read just after (K1-K4 launched by the warm-ups and the
+    captures): ``ll_baseline`` set after the MAP and before NUTS captures,
+    the potential at the MAP below 1e3, a replay against eager float64 with
+    the same baseline, ms a MAP step and a leapfrog, the netcdf read back;
+    ``xcorr`` of the 120 trials against ``numpy.correlate`` and its time,
+    the CCG fit engines (``"torch"`` against ``"scipy"``, median losses);
+    ``System.gains(method="sqrt"|"steady")`` at T=1000 in float32 against
+    the float64 scan, whether each synchronizes, their host time beside
+    K1's, and ``log_likelihood(gains_method="sqrt")`` through K3; and
+    ``profiling.timeit`` of the fit's replay beside phase 13's reading.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -176,9 +192,10 @@ DELAY_SHARED = ["c", "subj_noise", "subj_vel_noise", "sigma_cursor",
 # DELAY_GRAD_SCALED of the largest (measured on an H100: 5.1e-4 and 9.9e-7)
 DELAY_POT_RTOL, DELAY_GRAD_RTOL, DELAY_GRAD_SCALED = 2e-3, 5e-3, 1e-5
 # scripts/recover.py's recovery: its seed, trials, horizon and chains; the
-# run's warmup and samples sized to the time limit
+# run's warmup and samples sized to the time limit (300 + 300 until phase 18
+# came)
 RECOVER_SEED, RECOVER_TRIALS, RECOVER_T = 7432, 20, 720
-RECOVER_WARMUP, RECOVER_SAMPLES, RECOVER_SDS = 300, 300, 4.0
+RECOVER_WARMUP, RECOVER_SAMPLES, RECOVER_SDS = 200, 200, 4.0
 EDGE_DELAY, EDGE_T, EDGE_SETS = 11, 40, 2  # j = 2 * (2 + 3) * 12 = 120, d = 4
 # phases 15-16, the rest of the zoo: each path's model class, its keyword
 # arguments, the parameter that differs between conditions, and the shared
@@ -215,23 +232,39 @@ ZOO_GAINS_ATOL = 5e-4
 # activation's stay near 1); phase 16 prints each store's worst row
 K3_STORE_SCALE = 1e-3
 # phase 17, scripts/fit_data.py's pipeline at the data's shape: the MAP's
-# Adam steps at step size 0.05, the IAF guide fit (fit_data.py's 3,000
-# steps of 16 particles), the Gaussian guide's 300 steps of 8 particles, the
+# Adam steps at step size 0.05, the IAF guide fit (16 particles; fit_data.py
+# takes 3,000 steps, cut to 1,500 when phase 18 came), the Gaussian guide's 300 steps of 8 particles, the
 # warped-space polish (step size 0.02) and NeuTra NUTS on 4 chains; K1-K4
 # held against their plain versions at the parameter sets those steps
 # launch them at (1, 8 and 16 points x 6 conditions); the ELBO's gradient
 # with respect to each guide parameter against float64 within
 # POT_GRAD_RTOL of itself plus ELBO_GRAD_SCALED of its leaf's largest entry
 # (a mean over particles of J^T grad, whose small entries cancel)
-MAP_STEPS, MAP_STEP_SIZE, IAF_STEPS, MVN_STEPS = 300, 0.05, 3000, 300
+MAP_STEPS, MAP_STEP_SIZE, IAF_STEPS, MVN_STEPS = 300, 0.05, 1500, 300
 POLISH_STEPS, POLISH_STEP_SIZE = 200, 0.02
 NEUTRA_WARMUP, NEUTRA_SAMPLES, NEUTRA_DEPTH = 100, 100, 8
 # laplace_guide runs the scans eagerly, with a double-backward graph: at
-# T=1008 it took 124.76 s on an H100, so its horizon is cut to keep it
-# under a minute (the other steps keep T=1008)
-LAPLACE_T = 360
+# T=1008 it took 124.76 s on an H100 and 46.94-55.58 s at T=360, so its
+# horizon is cut to keep it near half a minute (the other steps keep
+# T=1008)
+LAPLACE_T = 180
 FIT_BATCHES = (1, 8, 16)  # points of the potential: MAP, MVN, IAF
 ELBO_GRAD_SCALED = 1e-3
+# phase 18, the data and fit tools: the synthetic data.mat at the data's
+# raw shape (6 blob widths x 20 trials x 1201 steps; the loader's delay and
+# clip leave 1009), scripts/torch_fit_data.py's arguments, xcorr's lags and
+# tolerance (of the largest entry), the CCG engines' median losses
+DATA_RAW_T, DATA_DELAY, DATA_CLIP = 1201, 12, 180
+DATA_SIGMAS = (5.0, 8.0, 11.0, 14.0, 17.0, 20.0)  # x 1.32 -> 6 blob widths
+FIT_MAP_STEPS, FIT_SAMPLES, FIT_DEPTH = 300, 100, 8
+FIT_ARGS = ["--init", "map", "--map-steps", str(FIT_MAP_STEPS), "--nsamp",
+            str(FIT_SAMPLES), "--nburnin", str(FIT_SAMPLES), "--nchain",
+            str(CHAINS), "--max-depth", str(FIT_DEPTH)]
+XCORR_LAGS, XCORR_SCALED, CCG_LOSS_RATIO = 60, 1e-5, 1.05
+# the sqrt gains against the float64 scan, the steady gains at t=100 (L)
+# and at the last step (K): the bounds of lqg_tpu's tests/test_sqrt.py and
+# tests/test_dare.py
+SQRT_ATOL, STEADY_L_ATOL, STEADY_K_ATOL = 1e-4, 1e-2, 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -355,28 +388,13 @@ def paired_ms(fn_a, fn_b, rounds=6, launches=5):
     return statistics.median(times[0]), statistics.median(times[1])
 
 
-def device_spans(fn):
-    """One call of ``fn`` under ``torch.profiler``: its host-clock time (ms)
-    and the device's events as sorted (start ns, end ns, name)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    return wall, sorted((e.start_ns(), e.end_ns(), e.name())
-                        for e in prof.profiler.kineto_results.events()
-                        if e.device_type() == DeviceType.CUDA)
-
-
 def kernel_device_ms(fn, name):
     """The device time of each kernel named ``name`` that one call of ``fn``
     launches, under ``torch.profiler``: (their mean in ms, their count), or
     (None, 0) where none was recorded."""
-    times = [(e - s) / 1e6 for s, e, n in device_spans(fn)[1] if name in n]
+    from lqg_tpu_torch.utils.profiling import device_events
+
+    times = [(e - s) / 1e6 for s, e, n in device_events(fn)[1] if name in n]
     return (statistics.mean(times) if times else None), len(times)
 
 
@@ -384,7 +402,9 @@ def profile_ms(fn, names):
     """One call of ``fn`` under ``torch.profiler``: its host-clock time, the
     union of the device's busy intervals, the number of device events and
     the device time of the kernels named in ``names`` (all in ms)."""
-    wall, spans = device_spans(fn)
+    from lqg_tpu_torch.utils.profiling import device_events
+
+    wall, spans = device_events(fn)
     busy, reach = 0, 0
     for start, end, _ in spans:
         busy += max(0, end - max(start, reach))
@@ -560,13 +580,6 @@ def host_ms(fn, calls):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-def kernel_counts(fn, names):
-    """How many kernels named in ``names`` one call of ``fn`` runs on the
-    device (``torch.profiler``)."""
-    spans = device_spans(fn)[1]
-    return {k: sum(k in n for _, _, n in spans) for k in names}
 
 
 # K1's two designs: the instances and the batches of the
@@ -1315,8 +1328,8 @@ def fit_pipeline(dev, card, counters, names, x_fit):
 
     def graph_of(model, C):
         """The captured value+grad of ``model`` at ``C`` points."""
-        fns = [f for (shape, _, _), f in model.value_and_grad_fns.items()
-               if shape[0] == C]
+        fns = [f for key, f in model.value_and_grad_fns.items()
+               if key[0][0] == C]
         require(len(fns) == 1 and isinstance(fns[0], GraphedValueAndGrad),
                 f"no captured graph at C={C}: {model.value_and_grad_fns}")
         return fns[0]
@@ -1535,6 +1548,277 @@ def fit_pipeline(dev, card, counters, names, x_fit):
     return launches, times
 
 
+def write_data_mat(dev, directory):
+    """Simulate the tracking experiment with ``BoundedActor`` at the data's
+    raw shape and write it as ``directory/data.mat`` (fields ``sigma``,
+    ``target``, ``response``: the response lags the cursor by the loader's
+    delay).  Returns the fields."""
+    import scipy.io as spio
+    from lqg_tpu_torch.models import BoundedActor
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    sigma = np.repeat(np.asarray(DATA_SIGMAS), LL_TRIALS)
+    xs = torch.cat([BoundedActor(
+        T=DATA_RAW_T - 1, sigma_target=round(s * 1.32), device=dev).simulate(
+            g, n=LL_TRIALS) for s in DATA_SIGMAS]).double().cpu().numpy()
+    response = np.concatenate([np.repeat(xs[:, :1, 1], DATA_DELAY, 1),
+                               xs[:, :-DATA_DELAY, 1]], 1)
+    fields = dict(sigma=sigma, target=xs[:, :, 0], response=response)
+    spio.savemat(os.path.join(directory, "data.mat"), fields)
+    return fields
+
+
+def preprocess(fields):
+    """``load_tracking_data(delay, clip, subtract_mean=False)`` written out
+    in numpy."""
+    sigma = (fields["sigma"] * 1.32).round()
+    widths = np.unique(sigma)
+    target = fields["target"].astype(np.float32)[:, DATA_CLIP:-DATA_DELAY]
+    mouse = fields["response"].astype(np.float32)[:, DATA_CLIP + DATA_DELAY:]
+    data = np.stack([np.stack([target[sigma == w], mouse[sigma == w]], -1)
+                     for w in widths])
+    return data - data[:, :, :1, :1], widths
+
+
+def data_tools(dev, card, counters, names, replay_fit_ms):
+    """Phase 18: the data and fit tools on the card.  The synthetic data
+    file through ``io.load_tracking_data``; ``scripts/torch_fit_data.py``'s
+    ``main`` on it (the baseline set before any capture, a replay against
+    eager float64, K1-K4 launched, the netcdf read back); ``xcorr`` and the
+    CCG fit engines on its 120 trials; the sqrt and steady gains; and
+    ``profiling.timeit`` of the fit's replay.  Returns K1-K4's launches in
+    the fit script and the phase's readings."""
+    import tempfile
+
+    from lqg_tpu_torch import ccg, xcorr
+    from lqg_tpu_torch.infer import mcmc as mcmc_module
+    from lqg_tpu_torch.infer import models as models_module
+    from lqg_tpu_torch.infer.capture import GraphedValueAndGrad
+    from lqg_tpu_torch.infer.models import shared_params_lqg_model
+    from lqg_tpu_torch.io import load_tracking_data
+    from lqg_tpu_torch.models import BoundedActor
+    from lqg_tpu_torch.ops.kernels.likelihood import (
+        conditioned_log_likelihood_fused)
+    from lqg_tpu_torch.results import load_netcdf
+    from lqg_tpu_torch.utils.profiling import timeit
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_fit_data
+
+    readings = {}
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the data file, read back as the loader reads it
+        fields = write_data_mat(dev, tmp)
+        data, widths = load_tracking_data(
+            delay=DATA_DELAY, clip=DATA_CLIP, subtract_mean=False,
+            data_path=tmp)
+        want, want_widths = preprocess(fields)
+        require(data.shape == (len(DATA_SIGMAS), LL_TRIALS,
+                               DATA_RAW_T - DATA_CLIP - DATA_DELAY, 2)
+                and np.array_equal(data, want)
+                and np.array_equal(widths, want_widths),
+                f"load_tracking_data: {data.shape} vs the inline numpy")
+        log(f"data.mat ({len(DATA_SIGMAS)} widths x {LL_TRIALS} trials x "
+            f"{DATA_RAW_T} raw steps, simulated) -> load_tracking_data "
+            f"{data.shape}, blob widths {widths.tolist()}: equal to the "
+            f"inline numpy preprocessing")
+
+        # 2. the port's fit script, in process; the captures' baselines
+        captures = []
+
+        def recording(module, what):
+            inner = module.value_and_grad_fn
+
+            def wrapper(potential, u0):
+                captures.append((what, tuple(u0.shape),
+                                 potential.__self__.ll_baseline))
+                return inner(potential, u0)
+            return inner, wrapper
+
+        originals = []
+        for module, what in ((models_module, "value_and_grad"),
+                             (mcmc_module, "MCMC.run")):
+            inner, wrapper = recording(module, what)
+            originals.append((module, inner))
+            module.value_and_grad_fn = wrapper
+        for fn in counters:
+            fn.launches = 0
+        try:
+            out = torch_fit_data.main(["--data", tmp, "--out", tmp]
+                                      + FIT_ARGS)
+        finally:
+            for module, inner in originals:
+                module.value_and_grad_fn = inner
+        torch.cuda.synchronize()
+        fit_launches = {k: fn.launches for k, fn in zip(names, counters)}
+        pm, mcmc, baseline = out["model"], out["mcmc"], out["ll_baseline"]
+        vg = mcmc.value_and_grad
+        log(f"captures (what, u shape, ll_baseline at capture): {captures}")
+        require(captures and captures[-1][0] == "MCMC.run"
+                and captures[-1][2] == baseline != 0.0
+                and all(c[2] == 0.0 for c in captures[:-1]),
+                "ll_baseline: the MAP captures at 0, NUTS after it is set")
+        require(abs(out["potential"]) < 1e3,
+                f"potential at the MAP {out['potential']}")
+        require(isinstance(vg, GraphedValueAndGrad) and vg.replays > 0,
+                "fit script: NUTS did not replay a captured graph")
+        require(all(v > 0 for v in fit_launches.values()),
+                f"fit script bypassed a kernel: {fit_launches}")
+        # a replay against eager float64 with the same baseline: the value
+        # within POT_RTOL of the likelihood's own magnitude (the baseline
+        # is subtracted after the float32 terms are formed)
+        z = mcmc._samples_u[:, -1].to(dev)
+        pe, grad = vg(z)
+        x64 = torch.as_tensor(data, dtype=torch.float64, device=dev)
+        pm64 = shared_params_lqg_model(x64, BoundedActor,
+                                       shared_params=SHARED)
+        pm64.ll_baseline = baseline
+        with torch.enable_grad():
+            u = z.double().requires_grad_()
+            pe64 = pm64.potential(u)
+            (grad64,) = torch.autograd.grad(pe64.sum(), u)
+        pe64 = pe64.detach()
+        val_err = float(((pe.double() - pe64).abs()
+                         / (pe64.abs() + abs(baseline))).max())
+        require(within(grad.double(), grad64, POT_GRAD_RTOL,
+                       1e-6 * float(grad64.abs().max()))
+                and val_err <= POT_RTOL,
+                f"fit replay vs float64: value {val_err}, gradient")
+        samples = load_netcdf(out["out_path"])
+        require(sorted(samples) == pm.names and all(
+            v.shape == (CHAINS, FIT_SAMPLES) and np.isfinite(v).all()
+            for v in samples.values()), f"netcdf: {list(samples)}")
+        map_ms = out["times"]["map_s"] * 1e3 / FIT_MAP_STEPS
+        leap_ms = out["times"]["mcmc_s"] * 1e3 / vg.replays
+        readings["fit"] = dict(map_ms=map_ms, leapfrog_ms=leap_ms,
+                               leapfrogs=vg.replays,
+                               potential=out["potential"],
+                               potential_baseline0=out["potential_baseline0"],
+                               ll_baseline=baseline)
+        log(f"[{card}] torch_fit_data.main({' '.join(FIT_ARGS)}) at "
+            f"{CONDITIONS} x {LL_TRIALS} x T={data.shape[2] - 1}: "
+            f"ll_baseline {baseline:.8g}; potential at the MAP "
+            f"{out['potential']:.6g} (at baseline 0: "
+            f"{out['potential_baseline0']:.8g}); MAP {map_ms:.4f} ms a step, "
+            f"NUTS {vg.replays} leapfrogs, {leap_ms:.4f} ms a leapfrog "
+            f"(host clock, the capture included); divergences "
+            f"{mcmc.divergences}; replay vs eager float64: value rel err "
+            f"{val_err:.3e} of the likelihood's magnitude (rtol {POT_RTOL}), "
+            f"gradient within rtol {POT_GRAD_RTOL}; launches (warm-ups and "
+            f"captures) {fit_launches}; {out['out_path']} read back with "
+            f"the model's {len(pm.names)} names")
+
+    # 3. xcorr on the data's 120 trials, and the CCG fit engines
+    flat = data.reshape(-1, data.shape[2], 2).astype(np.float64)
+    tx = torch.as_tensor(flat[..., 0], dtype=torch.float32, device=dev)
+    ty = torch.as_tensor(flat[..., 1], dtype=torch.float32, device=dev)
+    lags, corr = without_sync(lambda: xcorr(tx, ty, maxlags=XCORR_LAGS))
+    n = flat.shape[1]
+    ref = np.stack([np.correlate(a, b, "full")[n - 1 - XCORR_LAGS:
+                                              n + XCORR_LAGS]
+                    / (np.linalg.norm(a) * np.linalg.norm(b))
+                    for a, b in zip(flat[..., 0], flat[..., 1])])
+    x_err = float(np.abs(corr.double().cpu().numpy() - ref).max())
+    require(corr.shape == (flat.shape[0], 2 * XCORR_LAGS + 1)
+            and x_err <= XCORR_SCALED * np.abs(ref).max(),
+            f"xcorr vs numpy.correlate: {x_err}")
+    x_ms = cuda_ms(lambda: xcorr(tx, ty, maxlags=XCORR_LAGS))
+    t0 = time.perf_counter()
+    params, losses = ccg.fit_ccg_shape_batch("dog", lags, corr,
+                                             engine="torch")
+    torch.cuda.synchronize()
+    lm_ms = (time.perf_counter() - t0) * 1e3
+    lt = torch.as_tensor(lags, dtype=torch.float32, device=dev)
+    lm_again_ms = cuda_ms(lambda: ccg.lm_fit_batch(
+        "dog", lt, corr, ccg.restart_inits(
+            "dog", 8, torch.Generator(device=dev).manual_seed(0))),
+        runs=3, launches=1)
+    t0 = time.perf_counter()
+    fits = ccg.fit_ccg_shape_batch("dog", lags, corr, engine="scipy")
+    scipy_s = time.perf_counter() - t0
+    # both medians over the correlograms that scipy fitted
+    fitted = np.array([f is not None for f in fits])
+    failed = int((~fitted).sum())
+    scipy_losses = np.array([
+        float(np.sum((ccg.dog(lags.astype(float), **f) - y) ** 2))
+        for f, y in zip(fits, corr.double().cpu().numpy()) if f is not None])
+    require(fitted.any(), "CCG scipy engine fitted no correlogram")
+    med = float(np.median(losses.cpu().numpy()[fitted]))
+    med_scipy = float(np.median(scipy_losses))
+    require(params.shape == (flat.shape[0], 6)
+            and med <= CCG_LOSS_RATIO * med_scipy,
+            f"CCG torch engine median loss {med} vs scipy {med_scipy}, over "
+            f"the {int(fitted.sum())} correlograms scipy fitted ({failed} "
+            "failed)")
+    readings["ccg"] = dict(xcorr_ms=x_ms, lm_ms=lm_ms,
+                           lm_events_ms=lm_again_ms, scipy_s=scipy_s,
+                           median_loss=med, scipy_median_loss=med_scipy,
+                           scipy_failed=failed)
+    log(f"[{card}] xcorr of {flat.shape[0]} trials of T={n}, maxlags="
+        f"{XCORR_LAGS}, float32, under set_sync_debug_mode('error'): "
+        f"{x_ms:.4f} ms (CUDA events); vs numpy.correlate float64 max abs "
+        f"err {x_err:.3e} (of max {np.abs(ref).max():.4g}); CCG 'dog' fit "
+        f"of the {flat.shape[0]} correlograms, engine 'torch' (8 restarts, "
+        f"60 LM steps): {lm_ms:.1f} ms host clock, {lm_again_ms:.1f} ms CUDA "
+        f"events; engine 'scipy': {scipy_s:.2f} s, {failed} of "
+        f"{flat.shape[0]} fits failed; median loss over the "
+        f"{int(fitted.sum())} that scipy fitted: 'torch' {med:.6g}, "
+        f"'scipy' {med_scipy:.6g}")
+
+    # 4. the sqrt and steady gains, float32 against the float64 scan
+    m = BoundedActor(T=T, device=dev)
+    m64 = BoundedActor(T=T, device=dev, dtype=torch.float64)
+    g64, K64 = m64.gains(method="scan")
+    gains = {}
+    for method in ("sqrt", "steady", "auto"):
+        g, K = m.gains(method=method)
+        try:
+            without_sync(lambda: m.gains(method=method))
+            free = "no synchronization"
+        except RuntimeError as e:
+            free = f"synchronizes ({str(e)[:80]})"
+        gains[method] = (host_ms(lambda: m.gains(method=method), 3), free,
+                         g, K)
+    g, K = gains["sqrt"][2:]
+    sqrt_err = max(float((g.L - g64.L).abs().max()),
+                   float((K - K64).abs().max()))
+    g, K = gains["steady"][2:]
+    steady_err = (float((g.L[100] - g64.L[100]).abs().max()),
+                  float((K[-1] - K64[-1]).abs().max()))
+    require(sqrt_err <= SQRT_ATOL, f"sqrt gains vs float64 scan {sqrt_err}")
+    require(steady_err[0] <= STEADY_L_ATOL and steady_err[1] <= STEADY_K_ATOL,
+            f"steady gains vs float64 scan {steady_err}")
+    x = m.simulate(torch.Generator(device=dev).manual_seed(5), n=LL_TRIALS)
+    conditioned_log_likelihood_fused.launches = 0
+    ll = m.log_likelihood(x, gains_method="sqrt")
+    torch.cuda.synchronize()
+    k3 = conditioned_log_likelihood_fused.launches
+    ll64 = m64.log_likelihood(x.double(), method="scan")
+    require(k3 == 1 and within(ll.double(), ll64, LL_RTOL, LL_ATOL),
+            f"log_likelihood(gains_method='sqrt'): K3 {k3}, "
+            f"{float((ll.double() - ll64).abs().max())}")
+    readings["gains_ms"] = {k: v[0] for k, v in gains.items()}
+    log(f"[{card}] BoundedActor(T={T}) float32 gains, host ms (median of "
+        f"3): " + ", ".join(f"{k} {v[0]:.3f} ({v[1]})"
+                            for k, v in gains.items())
+        + f" ['auto' is K1]; sqrt vs the float64 scan max abs err "
+        f"{sqrt_err:.3e} (atol {SQRT_ATOL}); steady L at t=100 "
+        f"{steady_err[0]:.3e} (atol {STEADY_L_ATOL}), K at t=T-1 "
+        f"{steady_err[1]:.3e} (atol {STEADY_K_ATOL}); log_likelihood("
+        f"gains_method='sqrt') launched K3 {k3}x, max abs err vs the "
+        f"float64 scan {float((ll.double() - ll64).abs().max()):.3e}")
+
+    # 5. profiling.timeit of the fit's replay
+    timing = timeit(lambda: vg(z), iters=20, warmup=2, name="fit replay")
+    readings["timeit_replay_ms"] = timing.mean_s * 1e3
+    log(f"[{card}] profiling.timeit of the fit's replay ({CHAINS} chains): "
+        f"{timing}; phase 13's replay of the same potential "
+        f"{replay_fit_ms:.4f} ms (CUDA events)")
+    log(f"phase 18: {time.perf_counter() - t_all:.1f} s")
+    return fit_launches, readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1566,6 +1850,7 @@ def main() -> int:
     from lqg_tpu_torch.ops.kernels import likelihood_blocked as kb
     from lqg_tpu_torch.ops import kalman, riccati
     from lqg_tpu_torch.ops.linalg import mT
+    from lqg_tpu_torch.utils.profiling import kernel_counts
 
     counters = (fused_gains, fused_gains_vjp, conditioned_log_likelihood_fused,
                 conditioned_log_likelihood_vjp)
@@ -2407,8 +2692,9 @@ def main() -> int:
         replay_events = cuda_ms(lambda: graphed(u))
         replay_ms[what.split(":")[0]] = replay_events
         wall, busy, n_events, named = profile_ms(lambda: graphed(u), names)
-        # three replays in one profiler session: a replay runs every node of
-        # its graph, and the profiler now and then drops a kernel's record
+        # three replays a profiled session, the most of three sessions: a
+        # replay runs every node of its graph, and the profiler now and then
+        # drops a kernel's record
         seen = kernel_counts(lambda: [graphed(u) for _ in range(3)], names)
         require(all(v >= 1 for v in seen.values()),
                 f"graph replay, {what}: kernels in 3 replays {seen}")
@@ -2624,6 +2910,14 @@ def main() -> int:
                                    for k, v in rows.items()}
     log(f"fit pipeline ms a step (step; device busy a step, of a replay, of "
         f"Adam; alone a replay, Adam): {json.dumps(fit_times)}")
+    # 18. the data and fit tools: the data file, scripts/torch_fit_data.py,
+    # xcorr and the CCG fits, the sqrt and steady gains, profiling.timeit
+    tool_launches, tool_readings = data_tools(dev, card, counters, names,
+                                              replay_ms["fit"])
+    for entry in kernels:
+        if entry["name"] in tool_launches:
+            entry["fit_script_launches"] = tool_launches[entry["name"]]
+    log(f"data and fit tools (phase 18): {json.dumps(tool_readings)}")
     log(f"zoo launches (phase 15): {json.dumps(zoo_launches)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -18,7 +18,12 @@ the rest of the model zoo (``PointMassBoundedActor``,
 :mod:`lqg_tpu_torch.models`.  NUTS (:func:`lqg_tpu_torch.infer.infer`),
 point estimation, the variational guides and NeuTra
 (:mod:`lqg_tpu_torch.infer.svi`, :mod:`lqg_tpu_torch.infer.flows`) replay
-the potential's value and gradient from CUDA graphs.
+the potential's value and gradient from CUDA graphs.  The data and analysis
+tools are the JAX package's: the dataset loader (:mod:`lqg_tpu_torch.io`),
+posterior files (:mod:`lqg_tpu_torch.results`), cross-correlograms
+(:func:`xcorr`, :mod:`lqg_tpu_torch.ccg`), the alternate gains
+(``System.gains(method="sqrt"|"steady")``) and the fit scripts
+(``scripts/torch_*.py``).
 """
 
 __version__ = "0.1.0"
@@ -26,6 +31,7 @@ __version__ = "0.1.0"
 from lqg_tpu_torch.spec import LQGSpec
 from lqg_tpu_torch.system import LQG, Actor, Dynamics, System, LQGDistribution
 from lqg_tpu_torch import infer, models
+from lqg_tpu_torch.ccg import xcorr
 
 __all__ = [
     "LQG",
@@ -36,5 +42,6 @@ __all__ = [
     "LQGDistribution",
     "infer",
     "models",
+    "xcorr",
     "__version__",
 ]

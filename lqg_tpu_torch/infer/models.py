@@ -138,6 +138,20 @@ class ProbModel:
         (D,)``, ``(C,)`` for ``u (C, D)``."""
         return -self.log_joint_unconstrained(u)
 
+    def set_baseline(self):
+        """Set ``ll_baseline`` to the log likelihood at the initial point,
+        so that the potential there is O(1-100) nats whatever the data's
+        size.  Call it before anything captures the potential.  Returns
+        ``(baseline, potential there before, potential there now)``."""
+        u0 = self.init_unconstrained().detach()
+        with torch.no_grad():
+            before = float(self.potential(u0))
+            baseline = (float(self.log_likelihood(self.constrain(u0)))
+                        + self.ll_baseline)
+            self.ll_baseline = baseline
+            after = float(self.potential(u0))
+        return baseline, before, after
+
     def value_and_grad(self, u: torch.Tensor):
         """``(pe (C,), grad (C, D))`` of the potential at ``u (C, D)``.
 
@@ -145,10 +159,12 @@ class ProbModel:
         and gradient in a CUDA graph (:class:`~lqg_tpu_torch.infer.capture.
         GraphedValueAndGrad`), kept in ``value_and_grad_fns`` and replayed
         by every later call with that shape: the optimizers and the ELBO
-        call it at every step.  The graph holds the potential as it was
-        captured: set ``ll_baseline`` and ``method`` before the first call.
-        On the CPU it runs eagerly."""
-        key = (tuple(u.shape), u.dtype, u.device)
+        call it at every step.  A graph holds the potential as it was
+        captured, so ``ll_baseline`` and ``method`` are part of the key: a
+        call after either changed captures anew.  On the CPU it runs
+        eagerly."""
+        key = (tuple(u.shape), u.dtype, u.device, self.ll_baseline,
+               self.method)
         fn = self.value_and_grad_fns.get(key)
         if fn is None:
             fn = value_and_grad_fn(self.potential, u)

@@ -250,7 +250,7 @@ def laplace_guide(model: ProbModel, eig_floor: float = 1e-6):
     runs on the scans for the Hessian (``model.method = "scan"``, restored
     afterwards), as ``lqg_tpu`` forces its scans: eager, seconds on the
     card at the data's size.  A potential through ``make_psd`` (the point
-    mass) raises ``NotImplementedError``.
+    mass) takes its second derivative through ``ops.linalg._Eigh``.
     """
     u0 = model.init_unconstrained().detach()
     method = model.method

@@ -85,7 +85,57 @@ def infer(x, num_samples, num_warmup, model=None, model_fn=lifted_model,
     return mcmc
 
 
-def neutra_reparam(model: ProbModel, guide) -> ProbModel:
+class NeutraModel(ProbModel):
+    """A model seen through a guide's transform (see :func:`neutra_reparam`).
+
+    Its likelihood is the base model's, so ``ll_baseline`` and ``method``
+    are the base model's too, read and set through to it: there is one copy
+    of each, and a change made on either model changes the value and is a
+    new key of :meth:`~ProbModel.value_and_grad`'s graph cache.
+    """
+
+    def __init__(self, model: ProbModel, guide):
+        self.base = model
+        # the fields' setters write the base model's values back to it
+        super().__init__(init=dict(model.init),
+                         transforms=dict(model.transforms),
+                         log_likelihood=model.log_likelihood,
+                         priors=model.priors, ll_baseline=model.ll_baseline,
+                         method=model.method)
+        self.guide = guide
+        self.init_eps = torch.zeros_like(guide.loc)
+
+    @property
+    def ll_baseline(self) -> float:
+        return self.base.ll_baseline
+
+    @ll_baseline.setter
+    def ll_baseline(self, value: float):
+        self.base.ll_baseline = value
+
+    @property
+    def method(self) -> str:
+        return self.base.method
+
+    @method.setter
+    def method(self, value: str):
+        self.base.method = value
+
+    def log_joint_unconstrained(self, eps):
+        u, logdet = self.guide.transform_and_logdet(eps)
+        return self.base.log_joint_unconstrained(u) + logdet
+
+    def init_unconstrained(self):
+        return self.init_eps
+
+    def constrain(self, eps):
+        # draws come back to the host; the guide stays on its device
+        loc = self.guide.loc
+        u = self.guide.transform(eps.to(device=loc.device, dtype=loc.dtype))
+        return self.base.constrain(u.to(eps.device))
+
+
+def neutra_reparam(model: ProbModel, guide) -> NeutraModel:
     """Precondition a model through a fitted guide transform (NeuTra).
 
     NUTS runs in the guide's standardized space ``eps``; positions map back
@@ -95,29 +145,10 @@ def neutra_reparam(model: ProbModel, guide) -> ProbModel:
     up the transform's log-Jacobian.  The returned model's potential is the
     flow and the LQG potential together, so :class:`MCMC` captures both and
     autograd in one CUDA graph.  Chains start at ``eps = 0`` unless a caller
-    assigns ``init_eps`` (e.g. a warped-space MAP polish).
+    assigns ``init_eps`` (e.g. a warped-space MAP polish).  Its
+    ``ll_baseline`` and ``method`` are the base model's (:class:`NeutraModel`).
     """
-    reparam = ProbModel(init=dict(model.init),
-                        transforms=dict(model.transforms),
-                        log_likelihood=model.log_likelihood,
-                        priors=model.priors)
-    base_log_joint = model.log_joint_unconstrained
-    loc = guide.loc
-
-    def log_joint_eps(eps):
-        u, logdet = guide.transform_and_logdet(eps)
-        return base_log_joint(u) + logdet
-
-    def constrain(eps):
-        # draws come back to the host; the guide stays on its device
-        u = guide.transform(eps.to(device=loc.device, dtype=loc.dtype))
-        return model.constrain(u.to(eps.device))
-
-    reparam.log_joint_unconstrained = log_joint_eps
-    reparam.init_eps = torch.zeros_like(loc)
-    reparam.init_unconstrained = lambda: reparam.init_eps
-    reparam.constrain = constrain
-    return reparam
+    return NeutraModel(model, guide)
 
 
 def sample_from_prior(model_type, seed, prior_dict=None,

@@ -40,6 +40,19 @@ def cho_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x[..., 0] if vec else x
 
 
+def psd_solve(M: torch.Tensor, b: torch.Tensor,
+              jitter: float = 0.0) -> torch.Tensor:
+    """Solve ``M x = b`` for symmetric positive-definite ``M`` via Cholesky;
+    NaN where ``M`` is not positive-definite, as ``lqg_tpu`` gives.
+
+    ``b`` may be a matrix or (batched) vector; leading batch axes broadcast.
+    """
+    M = symmetrize(M)
+    if jitter:
+        M = M + jitter * _eye_like(M)
+    return cho_solve(cholesky(M), b)
+
+
 def tri_logdet(chol: torch.Tensor) -> torch.Tensor:
     """``log det(L L^T)`` from the Cholesky factor ``L``."""
     return 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
@@ -188,7 +201,7 @@ def eigh_jacobi(S: torch.Tensor):
     number of sweeps of tensor operations, nothing read on the host.  For the
     small matrices of the model constructors (n <= 4), where
     ``torch.linalg.eigh`` checks its error code on the host.  Eigenvalues
-    are not sorted; not differentiable (see :func:`make_psd`)."""
+    are not sorted; differentiate through :class:`_Eigh`."""
     n = S.shape[-1]
     like = dict(dtype=S.dtype, device=S.device)
     eye = torch.eye(n, **like)
@@ -219,31 +232,56 @@ def eigh_jacobi(S: torch.Tensor):
     return torch.diagonal(S, dim1=-2, dim2=-1), Vec
 
 
-class _ClipSpectrum(torch.autograd.Function):
-    """``Vec diag(max(w, eps)) Vec^T`` of a symmetric matrix, with the
-    spectral-function adjoint: ``S-bar = Vec (G o (Vec^T F-bar Vec))
-    Vec^T``, ``G`` the divided differences of ``max(., eps)`` over the
-    eigenvalues (its derivative where two coincide), the quantity
-    ``jax.grad`` forms through ``jnp.linalg.eigh``."""
+class _Eigh(torch.autograd.Function):
+    """``(w, Vec)`` of a symmetric matrix by :func:`eigh_jacobi`, with the
+    eigendecomposition's adjoint ``S-bar = Vec (diag(w-bar) + E o (Vec^T
+    Vec-bar)) Vec^T``, symmetrized, ``E[i, j] = 1 / (w[j] - w[i])`` off the
+    diagonal (0 where two eigenvalues coincide), as ``jnp.linalg.eigh``'s
+    derivative.  The backward is itself made of differentiable operations
+    on the saved outputs, so autograd differentiates it again."""
 
     @staticmethod
-    def forward(ctx, S, eps):
+    def forward(ctx, S):
         w, Vec = eigh_jacobi(S)
-        g = torch.clamp(w, min=eps)
+        ctx.save_for_backward(w, Vec)
+        return w, Vec
+
+    @staticmethod
+    def backward(ctx, wbar, Vbar):
+        w, Vec = ctx.saved_tensors
+        inner = torch.zeros_like(Vec)
+        if Vbar is not None:
+            dw = w[..., None, :] - w[..., :, None]
+            same = dw == 0
+            E = torch.where(same, 0.0, 1.0 / torch.where(same, 1.0, dw))
+            inner = E * (mT(Vec) @ Vbar)
+        if wbar is not None:
+            inner = inner + torch.diag_embed(wbar)
+        return symmetrize(Vec @ inner @ mT(Vec))
+
+
+class _ClipSpectrum(torch.autograd.Function):
+    """``Vec diag(max(w, eps)) Vec^T`` for the spectrum ``(w, Vec)`` of the
+    symmetric ``S``, with the spectral-function adjoint: ``S-bar = Vec (G o
+    (Vec^T F-bar Vec)) Vec^T``, ``G`` the divided differences of ``max(.,
+    eps)`` over the eigenvalues (its derivative where two coincide), the
+    quantity ``jax.grad`` forms through ``jnp.linalg.eigh``.
+
+    The gradient goes to ``S`` alone.  The backward is made of
+    differentiable operations on ``w`` and ``Vec``, which reach ``S``
+    through :class:`_Eigh`: a second derivative (a Hessian through
+    :func:`make_psd`) takes the eigenvector terms from there."""
+
+    @staticmethod
+    def forward(ctx, S, w, Vec, eps):
         ctx.eps = eps
-        ctx.save_for_backward(w, g, Vec)
-        return (Vec * g[..., None, :]) @ mT(Vec)
+        ctx.save_for_backward(w, Vec)
+        return (Vec * torch.clamp(w, min=eps)[..., None, :]) @ mT(Vec)
 
     @staticmethod
     def backward(ctx, Fbar):
-        if torch.is_grad_enabled():  # a second derivative: no Hessian
-            raise NotImplementedError(
-                "make_psd's eigenvalue clip is differentiable once; a "
-                "second derivative (a Hessian of a potential through it, "
-                "e.g. laplace_guide on the point mass) would lack the "
-                "eigenvector terms and is not ported (ROADMAP.md Queue 3, "
-                "the point-mass Hessian)")
-        w, g, Vec = ctx.saved_tensors
+        w, Vec = ctx.saved_tensors
+        g = torch.clamp(w, min=ctx.eps)
         dw = w[..., :, None] - w[..., None, :]
         same = dw == 0
         # the derivative of max(w, eps): 1 above eps, 1/2 at it (as
@@ -252,7 +290,7 @@ class _ClipSpectrum(torch.autograd.Function):
         G = torch.where(same, 0.5 * (slope[..., :, None] + slope[..., None, :]),
                         (g[..., :, None] - g[..., None, :])
                         / torch.where(same, 1.0, dw))
-        return Vec @ (G * (mT(Vec) @ Fbar @ Vec)) @ mT(Vec), None
+        return Vec @ (G * (mT(Vec) @ Fbar @ Vec)) @ mT(Vec), None, None, None
 
 
 def make_psd(M: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -260,5 +298,7 @@ def make_psd(M: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     ``lqg_tpu.ops.linalg.make_psd``, reference
     ``lqg/tracking/point_mass.py:130-144``), for the small matrices of the
     model constructors: the spectrum comes from :func:`eigh_jacobi`, so
-    nothing waits for the card."""
-    return _ClipSpectrum.apply(symmetrize(M), eps)
+    nothing waits for the card.  Differentiable twice (:class:`_Eigh`)."""
+    S = symmetrize(M)
+    w, Vec = _Eigh.apply(S)
+    return _ClipSpectrum.apply(S, w, Vec, eps)

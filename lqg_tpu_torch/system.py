@@ -30,12 +30,14 @@ import torch
 from lqg_tpu_torch.config import as_tensors, pin_precision
 from lqg_tpu_torch.spec import LQGSpec
 from lqg_tpu_torch.ops import riccati, kalman, gaussian
+from lqg_tpu_torch.ops.dare import steady_state
 from lqg_tpu_torch.ops.kernels.gains import fused_gains, fused_gains_available
 from lqg_tpu_torch.ops.kernels.likelihood import (
     conditioned_log_likelihood_fused, fused_ll_available)
 from lqg_tpu_torch.ops.kernels.likelihood_blocked import (
     blocked_ll_available, conditioned_log_likelihood_blocked)
 from lqg_tpu_torch.ops.linalg import mT
+from lqg_tpu_torch.ops.sqrt import kalman_forward_sqrt, riccati_backward_sqrt
 from lqg_tpu_torch.utils import time_stack_spec, stationary_spec
 from lqg_tpu_torch.infer.dists import GaussianSequence, MultivariateNormal
 
@@ -156,19 +158,39 @@ class System:
                 ``"fused"`` (K1; its plain version on the CPU) or
                 ``"scan"`` (:func:`riccati.backward` with ``"jitter"``, or
                 :func:`riccati.backward_multiplicative` for a system with
-                ``control_noise``, and :func:`kalman.forward`).  ``"sqrt"``
-                and ``"steady"`` are not ported yet.  K1 has no
-                control-multiplicative noise, so ``"fused"`` raises for a
-                system with ``control_noise``, where ``lqg_tpu`` runs its
-                kernel without the noise.
+                ``control_noise``, and :func:`kalman.forward`), ``"sqrt"``
+                (the QR array-form recursions of :mod:`~lqg_tpu_torch.ops.
+                sqrt`: factors instead of covariances; zero affine and cross
+                cost terms, no ``control_noise``) or ``"steady"``
+                (infinite-horizon gains by doubling, :mod:`~lqg_tpu_torch.
+                ops.dare`, the same at every step: exact in the long-horizon
+                interior, approximate near the boundaries; a stationary
+                actor only).  K1 has no control-multiplicative noise, so
+                ``"fused"`` raises for a system with ``control_noise``,
+                where ``lqg_tpu`` runs its kernel without the noise.
 
         Returns ``(Gains, K)`` with time-leading ``L (T, m, n)``,
         ``l (T, m)``, ``H (T, m, m)`` and ``K (T, n, p)``, each with the
         parameter-set axis after time, ``(T, P, ., .)``, for a batched spec.
         """
         Sigma0 = self._default_Sigma0() if Sigma0 is None else Sigma0
-        if method in ("sqrt", "steady"):
-            raise _not_ported(method, "item 15")
+        if method == "steady":
+            if _stacked(self.actor):
+                raise ValueError("steady gains require a stationary actor "
+                                 "spec (time-invariant problem)")
+            ss = steady_state(self.actor)
+            T = self.horizon
+            L = ss.L.expand((T,) + ss.L.shape)
+            K = ss.K.expand((T,) + ss.K.shape)
+            return riccati.Gains(L=L, l=L.new_zeros(L.shape[:-1]), H=None), K
+        if method == "sqrt":
+            if self.control_noise is not None:
+                raise ValueError(
+                    "sqrt gains do not support control-multiplicative noise")
+            gains = riccati_backward_sqrt(self.actor, horizon=self.horizon)
+            K = kalman_forward_sqrt(self.actor, Sigma0=Sigma0,
+                                    horizon=self.horizon)
+            return gains, K
         if method == "auto":
             method = "fused" if self._fused_ok(Sigma0) else "scan"
         if method == "fused":
@@ -188,7 +210,8 @@ class System:
             l = L.new_zeros(L.shape[:-1])  # zero affine terms
             return riccati.Gains(L=L, l=l, H=H), K
         if method != "scan":
-            raise ValueError(f"method must be auto|fused|scan, got {method!r}")
+            raise ValueError(
+                f"method must be auto|fused|scan|sqrt|steady, got {method!r}")
         if self.control_noise is not None:
             gains = riccati.backward_multiplicative(
                 self.actor, self.control_noise, horizon=self.horizon)

@@ -264,16 +264,38 @@ def test_laplace_guide_matches_jax(kind, x64):
           atol=1e-10 * float(np.abs(np.asarray(jg.scale_tril)).max()))
 
 
-def test_laplace_guide_through_make_psd_raises(x64):
+def test_laplace_guide_through_make_psd_matches_jax(x64):
     """The point mass's potential passes through ``make_psd``'s eigenvalue
-    clip, which is differentiable once: the Hessian raises a clear error
-    rather than lack the eigenvector terms."""
+    clip, which the port differentiates twice through ``linalg._Eigh``:
+    the Hessian of its lifted potential (T=8, 2 trials) equals
+    ``jax.hessian`` of ``lqg_tpu``'s, and ``laplace_guide``'s eigenvalues
+    and ``scale_tril`` equal ``lqg_tpu.infer.svi.laplace_guide``'s, rtol
+    1e-6; the model's ``method`` is restored."""
+    import jax
+    import jax.numpy as jnp
+    from lqg_tpu import models as jmodels
+    from lqg_tpu.infer import models as jinfer
+    from lqg_tpu.infer import svi as jsvi
+
     m = tmodels.PointMassBoundedActor(T=8, device="cpu", dtype=torch.float64)
     x = m.simulate(torch.Generator().manual_seed(0), n=2)[..., :2]
-    pm = tinfer.lifted_model(x, tmodels.PointMassBoundedActor)
-    with pytest.raises(NotImplementedError, match="point-mass Hessian"):
-        tsvi.laplace_guide(pm)
-    assert pm.method == "auto"
+    tm = tinfer.lifted_model(x, tmodels.PointMassBoundedActor)
+    jm = jinfer.lifted_model(jnp.asarray(x.numpy()),
+                             jmodels.PointMassBoundedActor)
+    rng = np.random.default_rng(11)
+    u = np.asarray(jm.init_unconstrained()) + 0.1 * rng.normal(
+        size=len(tm.names))
+    jm.init = jm.constrain(jnp.asarray(u))
+    tm.init = tm.constrain(torch.tensor(u))
+    jh = np.asarray(jax.jit(jax.hessian(jm.potential))(jnp.asarray(u)))
+    th = tsvi._hessian(tm.potential, torch.tensor(u))
+    close(th.numpy(), jh, rtol=1e-6, atol=1e-10 * float(np.abs(jh).max()))
+    jg, jw = jsvi.laplace_guide(jm)
+    tg, tw = tsvi.laplace_guide(tm)
+    assert tm.method == "auto"
+    close(tw.numpy(), jw, rtol=1e-6, atol=1e-10 * float(np.abs(jw).max()))
+    close(tg.scale_tril.numpy(), jg.scale_tril, rtol=1e-6,
+          atol=1e-10 * float(np.abs(np.asarray(jg.scale_tril)).max()))
 
 
 # --- on the card -------------------------------------------------------------

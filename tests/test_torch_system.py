@@ -4,6 +4,7 @@ against ``lqg_tpu``, the goldens, the device policy and the import rule."""
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -167,15 +168,17 @@ def test_golden_log_likelihood(case):
 def test_methods_not_ported_raise():
     m = tmodels.BoundedActor(T=5, device="cpu")
     x = m.simulate(None, n=1)
-    for method in ("sqrt", "steady"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            m.gains(method=method)
+    # "sqrt" and "steady" are ported (tests/test_torch_sqrt_dare.py)
+    with pytest.raises(ValueError, match=re.escape(
+            "method must be auto|fused|scan|sqrt|steady, got 'bogus'")):
+        m.gains(method="bogus")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.log_likelihood(x, method="pscan")
     # "blocked" is ported: the bounded actor's j = 4 is outside its scope
     with pytest.raises(ValueError, match="scope"):
         m.log_likelihood(x, method="blocked")
-    with pytest.raises(ValueError, match="auto|fused|blocked|scan"):
+    with pytest.raises(ValueError, match=re.escape(
+            "method must be auto|fused|blocked|scan, got 'bogus'")):
         m.log_likelihood(x, method="bogus")
 
 

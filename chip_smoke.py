@@ -138,7 +138,25 @@ beside it.  Phases, each fatal on failure:
     ``System.gains(method="sqrt"|"steady")`` at T=1000 in float32 against
     the float64 scan, whether each synchronizes, their host time beside
     K1's, and ``log_likelihood(gains_method="sqrt")`` through K3; and
-    ``profiling.timeit`` of the fit's replay beside phase 13's reading.
+    ``profiling.timeit`` of the fit's replay beside phase 13's reading;
+19. the parallel layer: ``log_likelihood(method="pscan")`` of the bounded
+    actor (20 trials) at T=1008 and T=10^4, value and value+grad (K1 and K2
+    once each, no K3/K4), with TF32 off and no host synchronization,
+    against float64 and K3; pscan timed beside K3 and K3+K4 on the same
+    joint system; where a chain's float32 value+grad comes to depend on the
+    batch of chains (``batch_bits``); then two ranks started by
+    ``torch.multiprocessing`` (gloo sharing one card, nccl one card each
+    where there are two), the kernels already built: the trial-sharded
+    value+grad of the fit's 120 trials against one process, the
+    horizon-sharded value+grad at T=10^4 against one-device pscan, and
+    chain-sharded NUTS (4 chains, 2 a rank, graphs replayed): its captured
+    value+grad and its first transition against the unsharded ones, its
+    posterior means against the unsharded run's within standard errors, a
+    stopped and resumed run and a run with a binding leapfrog budget the
+    same bits, and in float64 the sharded draws against the unsharded
+    run's; K1-K4's launches per rank and path, ms a leapfrog sharded (with
+    and without the budget) and unsharded; and a one-rank nccl group
+    through the trial-sharded value+grad.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -265,6 +283,49 @@ XCORR_LAGS, XCORR_SCALED, CCG_LOSS_RATIO = 60, 1e-5, 1.05
 # and at the last step (K): the bounds of lqg_tpu's tests/test_sqrt.py and
 # tests/test_dare.py
 SQRT_ATOL, STEADY_L_ATOL, STEADY_K_ATOL = 1e-4, 1e-2, 1e-4
+# phase 19, the parallel layer: method="pscan" at the fit's horizon and at
+# T=10^4 (20 trials, the bounded actor), held against float64 (the scan at
+# the fit's horizon; at 10^4 pscan on the associative gains, where the
+# scans' host loop and its backward would take tens of seconds) and timed
+# beside K3/K4 on the same inputs; then PAR_RANKS ranks of
+# torch.multiprocessing (gloo sharing one card, nccl on two or more): the
+# trial-sharded likelihood of the fit's 120 trials, the horizon-sharded
+# likelihood at T=10^4, and chain-sharded NUTS on phase 13's recovery
+# potential (float32, graphs replayed; 4 chains, PAR_WARMUP + PAR_SAMPLES
+# transitions, max_depth PAR_DEPTH, chunks of PAR_CHUNK), uninterrupted and
+# stopped after a chunk and resumed; a one-rank nccl group through the
+# trial-sharded likelihood.  In float32 the potential's gradient at 2 chains
+# differs from that at 4 in its last bits (measured up to 4.9e-4 absolute on
+# an H100: autograd's sums over time of time-broadcast matrices round
+# otherwise at another batch, as batch_bits shows), and
+# NUTS, which is chaotic, then leaves the unsharded run's draws within a
+# few transitions (0.55 apart after 20 + 20).  So in float32 a rank's
+# captured value+grad at its chains is held to the unsharded one at the same
+# points (POT_RTOL, POT_GRAD_RTOL), the first transition's draws to the
+# unsharded ones (within PAR_FIRST_SDS of the unsharded posterior sds: the
+# rounding, amplified over a tree's leapfrogs, against a step's size for a
+# chain mixed up), and the posterior means after
+# PAR_WARMUP + PAR_SAMPLES to the unsharded run's within PAR_SES standard
+# errors of their difference (sd sqrt(1/ESS + 1/ESS'), each ESS at most the
+# number of draws); the draw-for-draw check runs in float64 (PAR_EXACT_T
+# steps, PAR_EXACT_TRIALS trials, PAR_EXACT_DRAWS + PAR_EXACT_DRAWS
+# transitions, max_depth 4, within PAR_EXACT_ATOL of the unsharded run).
+PSCAN_TS = (T_FIT, 10_000)
+PAR_RANKS, PAR_JOIN_S = 2, 300
+PAR_PARAMS = dict(action_cost=0.5, action_variability=0.6, sigma_cursor=2.0)
+PAR_WARMUP, PAR_SAMPLES, PAR_DEPTH, PAR_CHUNK, PAR_SEED = 20, 20, 5, 10, 19
+PAR_SES, PAR_FIRST_SDS = 4.0, 1e-2
+# batch_bits: a tensor's difference to its counterpart's rows, relative to
+# its largest entry, counts as rounding up to this (beyond it the two are
+# not the same rows)
+ROUNDING, SOURCES_SHOWN = 1e-3, 12
+# the sharded chains' leapfrog budget that can end a chunk (so that each
+# transition reads its trees' sizes, across the ranks), timed beside the
+# default that cannot
+PAR_BUDGET = (PAR_CHUNK - 1) * 2 ** PAR_DEPTH
+PAR_EXACT_T, PAR_EXACT_TRIALS, PAR_EXACT_DRAWS, PAR_EXACT_ATOL = 60, 5, 6, 1e-8
+EXACT_KW = dict(num_warmup=PAR_EXACT_DRAWS, num_samples=PAR_EXACT_DRAWS,
+                num_chains=4, max_depth=4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1819,6 +1880,612 @@ def data_tools(dev, card, counters, names, replay_fit_ms):
     return fit_launches, readings
 
 
+def pscan_paths(dev, card, counters, names):
+    """Phase 19, first part: ``log_likelihood(method="pscan")`` of the
+    bounded actor at each of ``PSCAN_TS`` (20 trials), value and value+grad
+    through the entry points (K1 and K2 for the gains, no K3/K4), with no
+    host synchronization, against float64 and against K3's value (an
+    independent path: at T=10^4 the float64 reference is pscan too);
+    pscan timed beside K3 and K3+K4 on the same joint system and trials.
+    Returns the trials and the float32 values and gradient at the last
+    horizon, each path's launches and the timings."""
+    from lqg_tpu_torch.models import BoundedActor
+    from lqg_tpu_torch.ops.gaussian import JointSystem, joint_system
+    from lqg_tpu_torch.ops.kernels.likelihood import (
+        conditioned_log_likelihood_fused)
+    from lqg_tpu_torch.ops.linalg import mT
+    from lqg_tpu_torch.parallel.pscan import (kalman_forward_assoc,
+                                              lqr_backward_assoc,
+                                              trial_log_likelihood_assoc)
+
+    require(torch.get_float32_matmul_precision() == "highest"
+            and not torch.backends.cuda.matmul.allow_tf32,
+            "float32 products must not take TF32")
+    g = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    launches, timings = {}, {}
+    for T_ in PSCAN_TS:
+        t0 = time.perf_counter()
+        x = BoundedActor(T=T_, device=dev).simulate(g, n=LL_TRIALS)
+        params = {k: torch.full((), v, device=dev, requires_grad=True)
+                  for k, v in PAR_PARAMS.items()}
+
+        def value(params=params, x=x, T_=T_):
+            return BoundedActor(T=T_, device=dev, **params).log_likelihood(
+                x, method="pscan")
+
+        def value_and_grad(params=params, value=value):
+            ll = value()
+            return ll, torch.autograd.grad(ll.sum(), list(params.values()))
+
+        for fn in counters:
+            fn.launches = 0
+        ll, grad = value_and_grad()
+        torch.cuda.synchronize()
+        launches[T_] = {k: fn.launches for k, fn in zip(names, counters)}
+        require(launches[T_] == {"gains_fwd": 1, "gains_bwd": 1, "ll_fwd": 0,
+                                 "ll_bwd": 0},
+                f"pscan at T={T_}: K1 and K2 once, got {launches[T_]}")
+        require(ll.shape == (LL_TRIALS,) and bool(torch.isfinite(ll).all())
+                and all(bool(torch.isfinite(v).all()) for v in grad),
+                f"pscan at T={T_}: shapes or values")
+        without_sync(value)
+        without_sync(value_and_grad)
+
+        t_ref = time.perf_counter()
+        p64 = {k: v.detach().double().requires_grad_()
+               for k, v in params.items()}
+        m64 = BoundedActor(T=T_, device=dev, dtype=torch.float64, **p64)
+        if T_ == T_FIT:
+            ref = "scan"
+            ll64 = m64.log_likelihood(x.double(), method="scan")
+        else:
+            # the scans' gains at T=10^4, a host loop, and their backward
+            # would take tens of seconds: the gains by associative scan too
+            ref = "pscan with the associative gains"
+            gains = lqr_backward_assoc(m64.actor, horizon=T_)
+            K = kalman_forward_assoc(m64.actor, m64._default_Sigma0(),
+                                     horizon=T_)
+            ll64 = trial_log_likelihood_assoc(
+                joint_system(m64.dynamics, m64.actor, gains.L, K, T_),
+                x.double())
+        grad64 = torch.autograd.grad(ll64.sum(), list(p64.values()))
+        ll64 = ll64.detach()
+        t_ref = time.perf_counter() - t_ref
+        err = float((ll.detach().double() - ll64).abs().max())
+        grad_rel = max(float(((a.double() - b) / b).abs())
+                       for a, b in zip(grad, grad64))
+        require(within(ll.detach().double(), ll64, LL_RTOL, LL_ATOL),
+                f"pscan at T={T_} vs float64 {ref}: {err}")
+        require(all(within(a.double(), b, POT_GRAD_RTOL, 0.0)
+                    for a, b in zip(grad, grad64)),
+                f"pscan gradient at T={T_} vs float64 {ref}: {grad_rel}")
+        row = (f"pscan BoundedActor T={T_} n={LL_TRIALS}: value vs float64 "
+               f"{ref} max abs err {err:.3e} of |ll| ~ "
+               f"{float(ll64.abs().mean()):.1f} (rtol {LL_RTOL}, atol "
+               f"{LL_ATOL}); gradient of {sorted(PAR_PARAMS)} rel err max "
+               f"{grad_rel:.3e} (rtol {POT_GRAD_RTOL}); launches {launches[T_]}"
+               f"; value and value+grad under set_sync_debug_mode('error'): "
+               f"no synchronization; the float64 reference {t_ref:.1f} s")
+        ll_k3 = BoundedActor(T=T_, device=dev, **params).log_likelihood(
+            x, method="fused").detach()
+        k3_err = float((ll.detach() - ll_k3).abs().max())
+        require(within(ll.detach(), ll_k3, LL_RTOL, LL_ATOL),
+                f"pscan vs K3 at T={T_}: {k3_err}")
+        row += f"; vs K3 max abs err {k3_err:.3e}"
+        log(row)
+
+        # pscan and the kernels on the same joint system and trials
+        joint = BoundedActor(T=T_, device=dev, **params)._joint()
+        F = joint.F.detach().requires_grad_()
+        G = joint.G.detach().requires_grad_()
+        x1 = x[None]
+
+        def k3(F=F, G=G, x1=x1):
+            return conditioned_log_likelihood_fused(F[None], (G @ mT(G))[None],
+                                                    x1)[0]
+
+        def ps(F=F, G=G, x=x):
+            return trial_log_likelihood_assoc(JointSystem(F, G), x)
+
+        def grad_of(fn, F=F, G=G):
+            return lambda: torch.autograd.grad(fn().sum(), (F, G))
+
+        with torch.no_grad():
+            p_ms, k_ms = paired_ms(ps, k3)
+        pg_ms, kg_ms = paired_ms(grad_of(ps), grad_of(k3))
+        timings[T_] = {"pscan_ms": p_ms, "k3_ms": k_ms,
+                       "pscan_grad_ms": pg_ms, "k3_k4_ms": kg_ms}
+        log(f"[{card}] pscan vs the kernels, T={T_}, {LL_TRIALS} trials, "
+            f"one joint system (CUDA events, in turns): value pscan "
+            f"{p_ms:.4f} ms, K3 {k_ms:.4f} ms (pscan / K3 {p_ms / k_ms:.3f});"
+            f" value+grad (F, G) pscan {pg_ms:.4f} ms, K3+K4 {kg_ms:.4f} ms "
+            f"(pscan / kernels {pg_ms / kg_ms:.3f}); "
+            f"{time.perf_counter() - t0:.1f} s")
+    return x, ll.detach(), [v.detach() for v in grad], launches, timings
+
+
+def batch_bits(potential, z):
+    """Where a chain's float32 value and gradient of the potential come to
+    depend on the batch of chains.  The potential's eager value+grad (the
+    operations a replay runs) at the first half of the chains ``z (C, D)``
+    and at all of them, every operation recorded (the aten operations
+    through a dispatch mode, K1-K4 through their launchers) with its inputs
+    and outputs; the two runs' operations are paired in order and each
+    tensor of the half batch held against the first rows of its
+    counterpart along the axis that halves.  Returns the number of
+    operations, the first whose outputs differ, those whose inputs agree
+    and outputs differ (the operations that make the difference: the first
+    SOURCES_SHOWN and their count), and the value's and the gradient's
+    largest differences."""
+    import lqg_tpu_torch.ops.kernels.gains as kg
+    import lqg_tpu_torch.ops.kernels.likelihood as kl
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    launchers = ((kg, "gains_fwd", "K1"), (kg, "fused_gains_vjp", "K2"),
+                 (kl, "ll_fwd", "K3"),
+                 (kl, "conditioned_log_likelihood_vjp", "K4"))
+
+    def tensors(tree):
+        return [t.detach().clone() for t in tree_leaves(tree)
+                if torch.is_tensor(t)]
+
+    class Record(TorchDispatchMode):
+        def __init__(self, calls):
+            super().__init__()
+            self.calls = calls
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ins = tensors((args, kwargs))
+            out = func(*args, **(kwargs or {}))
+            # factories hold no chain's rows (and empty ones, no values)
+            if ins and "empty" not in str(func):
+                self.calls.append((str(func), ins, tensors(out), [
+                    a for a in tree_leaves((args, kwargs))
+                    if not torch.is_tensor(a)]))
+            return out
+
+    def run(zz):
+        calls, saved = [], [getattr(m, a) for m, a, _ in launchers]
+
+        def recorded(fn, name):
+            def launch(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                calls.append((name, tensors((args, kwargs)), tensors(out),
+                              []))
+                return out
+            launch.launches = 0  # the launchers count themselves by name
+            return launch
+
+        for (m, a, name), fn in zip(launchers, saved):
+            setattr(m, a, recorded(fn, name))
+        try:
+            u = zz.detach().clone().requires_grad_()
+            with Record(calls):
+                pe = potential(u)
+                grad, = torch.autograd.grad(pe, u, torch.ones_like(pe))
+        finally:
+            for (m, a, _), fn in zip(launchers, saved):
+                setattr(m, a, fn)
+        return calls, pe.detach(), grad
+
+    def diff(a, b):
+        """The largest difference of ``a`` and ``b``'s first rows along
+        the axis where ``b`` is twice ``a``, relative to ``b``'s largest
+        entry: 0 where the bits agree, None where the tensors do not pair
+        (no such axis, or one merged into another, which shows as a
+        difference beyond rounding, ROUNDING)."""
+        if a.shape != b.shape:
+            axes = [d for d in range(a.dim()) if a.dim() == b.dim()
+                    and b.shape[d] == 2 * a.shape[d]
+                    and a.shape[:d] + a.shape[d + 1:]
+                    == b.shape[:d] + b.shape[d + 1:]]
+            if not axes:
+                return None
+            b = b.narrow(axes[0], 0, a.shape[axes[0]])
+        if torch.equal(a, b):
+            return 0.0
+        if not a.is_floating_point() or a.numel() == 0:
+            return None
+        a, b = a.double(), b.double()
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        return rel if rel <= ROUNDING else None
+
+    def summary(k, name, ins, rest, d_in, d_out):
+        return {"index": k, "op": name, "shapes": [list(t.shape) for t in ins],
+                "args": [str(a) for a in rest], "in_rel_diff": d_in,
+                "out_rel_diff": d_out}
+
+    half, pe_h, g_h = run(z[:z.shape[0] // 2])
+    full, pe_f, g_f = run(z)
+    out = {"operations": [len(half), len(full)], "first_differing": None,
+           "sources": [], "value_rel_diff": diff(pe_h, pe_f),
+           "grad_rel_diff": diff(g_h, g_f)}
+    for k, ((name, ins_h, outs_h, _), (name_f, ins_f, outs_f, rest)) in \
+            enumerate(zip(half, full)):
+        if name != name_f:
+            out["unpaired_at"] = [k, name, name_f]
+            break
+        d_in = [diff(a, b) for a, b in zip(ins_h, ins_f)]
+        d_out = [diff(a, b) for a, b in zip(outs_h, outs_f)]
+        rounded = [d for d in d_out if d]
+        if rounded and out["first_differing"] is None:
+            out["first_differing"] = summary(k, name, ins_f, rest, d_in,
+                                             d_out)
+        # every input paired and the same bits, an output rounded otherwise
+        if rounded and all(d == 0.0 for d in d_in):
+            out["sources"].append(summary(k, name, ins_f, rest, d_in, d_out))
+    out["n_sources"] = len(out["sources"])
+    out["sources"] = out["sources"][:SOURCES_SHOWN]
+    return out
+
+
+def parallel_rank(rank, tmp, world, device_type):
+    """One rank of phase 19 (a ``torch.multiprocessing`` spawn target):
+    the trial-sharded likelihood's value+grad, the horizon-sharded
+    likelihood's value+grad and chain-sharded NUTS (uninterrupted, stopped
+    and resumed, its first transition, its captured value+grad at given
+    points, and timed with a leapfrog budget that can bind), on meshes over
+    the ``world`` ranks, on the rank's device of ``device_type``; K1-K4's
+    launches on each path.  Results to ``rank{rank}.pt`` in ``tmp``."""
+    import torch.distributed as dist
+
+    from lqg_tpu_torch.infer.mcmc import MCMC
+    from lqg_tpu_torch.infer.models import lifted_model
+    from lqg_tpu_torch.models import BoundedActor
+    from lqg_tpu_torch.ops.kernels.gains import fused_gains, fused_gains_vjp
+    from lqg_tpu_torch.ops.kernels.likelihood import (
+        conditioned_log_likelihood_fused, conditioned_log_likelihood_vjp)
+    from lqg_tpu_torch.parallel import distributed_init, local_mesh
+    from lqg_tpu_torch.parallel.mesh import AxisSharding
+    from lqg_tpu_torch.parallel.sharding import (
+        sequence_parallel_log_likelihood, sharded_chains_run,
+        sharded_log_likelihood)
+
+    counters = (fused_gains, fused_gains_vjp, conditioned_log_likelihood_fused,
+                conditioned_log_likelihood_vjp)
+    names = ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd")
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        result = fn()
+        torch.cuda.synchronize()
+        return result, {k: c.launches for k, c in zip(names, counters)}
+
+    backend = distributed_init(f"file://{tmp}/store", world, rank)
+    try:
+        dev = torch.device(device_type)  # the rank's card is the current one
+        data = torch.load(os.path.join(tmp, "inputs.pt"), map_location=dev)
+        out = {"backend": backend, "world": dist.get_world_size(),
+               "device": str(data["x_ll"].device)}
+        total_ll = sharded_log_likelihood(
+            lambda p: BoundedActor(T=T_FIT, device=dev, **p), data["x_ll"],
+            local_mesh(device=dev))
+        params = {k: torch.full((), v, device=dev, requires_grad=True)
+                  for k, v in PAR_PARAMS.items()}
+
+        def ll_grad():
+            value = total_ll(params)
+            return value, torch.autograd.grad(value, list(params.values()))
+
+        (value, grad), n = counted(ll_grad)
+        out["ll"] = (value.detach().cpu(), [v.cpu() for v in grad], n,
+                     host_ms(ll_grad, 5))
+        sp = local_mesh(name="sp", device=dev)
+
+        def horizon_sharded():
+            ll = sequence_parallel_log_likelihood(
+                BoundedActor(T=PSCAN_TS[-1], device=dev, **params),
+                data["x_sp"], sp)
+            return ll, torch.autograd.grad(ll.sum(), list(params.values()))
+
+        (ll_sp, g_sp), n = counted(horizon_sharded)
+        out["sp"] = (ll_sp.detach().cpu(), [v.cpu() for v in g_sp], n,
+                     host_ms(horizon_sharded, 3))
+
+        chains = local_mesh(name="chains", device=dev)
+        model = lifted_model(data["x_rec"], BoundedActor)
+        kw = dict(num_warmup=PAR_WARMUP, num_samples=PAR_SAMPLES,
+                  num_chains=CHAINS, max_depth=PAR_DEPTH,
+                  chunk_steps=PAR_CHUNK)
+        t0 = time.perf_counter()
+        mc, n = counted(lambda: sharded_chains_run(MCMC(model, **kw),
+                                                   PAR_SEED, chains))
+        wall = time.perf_counter() - t0
+        out["chains"] = (mc._samples_u, mc.get_extra_fields()["num_steps"], n,
+                         wall, mc.value_and_grad.replays)
+        # the captured value+grad at this rank's rows of the given points
+        mine = AxisSharding(chains, "chains").block(CHAINS)
+        out["rows"] = tuple(v.cpu() for v in mc.value_and_grad(
+            data["z_rows"][mine]))
+        out["first"] = sharded_chains_run(
+            MCMC(model, num_warmup=0, num_samples=1, num_chains=CHAINS,
+                 max_depth=PAR_DEPTH), PAR_SEED, chains)._samples_u[:, 0]
+        t0 = time.perf_counter()
+        mc = sharded_chains_run(
+            MCMC(model, max_leapfrogs_per_launch=PAR_BUDGET, **kw),
+            PAR_SEED, chains)
+        out["budget"] = (time.perf_counter() - t0, mc.value_and_grad.replays,
+                         torch.equal(mc._samples_u, out["chains"][0]))
+        exact = lifted_model(data["x_exact"], BoundedActor)
+        out["exact"] = sharded_chains_run(
+            MCMC(exact, **EXACT_KW), PAR_SEED, chains)._samples_u
+        path = os.path.join(tmp, "chains.npz")
+        stopped = sharded_chains_run(
+            MCMC(model, checkpoint_every=1, **kw), PAR_SEED, chains,
+            checkpoint_path=path, _stop_after_launches=1)
+        out["resumed"] = (stopped, sharded_chains_run(
+            MCMC(model, **kw), PAR_SEED, chains,
+            checkpoint_path=path)._samples_u)
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def parallel_layer(dev, card, counters, names, x_fit, x_rec):
+    """Phase 19: the parallel layer on the card.  :func:`pscan_paths`; then
+    ``PAR_RANKS`` spawned ranks (:func:`parallel_rank`), built kernels
+    loaded, each rank's results held against one process's (the
+    trial-sharded value+grad, the horizon-sharded value+grad against
+    one-device pscan, the captured value+grad at the rank's chains and the
+    first transition against the unsharded ones, the sharded posterior
+    against the unsharded run's, the resumed run's and the budgeted run's
+    draws against the uninterrupted's); :func:`batch_bits` on the
+    recovery potential; and a one-rank nccl group through the
+    trial-sharded likelihood.  Returns K1-K4's launches on each path and
+    the phase's readings."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp_mp
+
+    from lqg_tpu_torch.infer import ess
+    from lqg_tpu_torch.infer.mcmc import MCMC
+    from lqg_tpu_torch.infer.models import lifted_model
+    from lqg_tpu_torch.models import BoundedActor
+    from lqg_tpu_torch.parallel import local_mesh
+    from lqg_tpu_torch.parallel.sharding import sharded_log_likelihood
+
+    t_all = time.perf_counter()
+    x_sp, ll_sp1, g_sp1, pscan_launches, timings = pscan_paths(
+        dev, card, counters, names)
+    readings = {"pscan": {str(k): v for k, v in timings.items()}}
+    launches = {f"pscan T={k}": v for k, v in pscan_launches.items()}
+
+    x_ll = x_fit.reshape(-1, T_FIT + 1, 2)
+    params = {k: torch.full((), v, device=dev, requires_grad=True)
+              for k, v in PAR_PARAMS.items()}
+
+    def one_rank():
+        value = BoundedActor(T=T_FIT, device=dev, **params).log_likelihood(
+            x_ll).sum()
+        return value, torch.autograd.grad(value, list(params.values()))
+
+    value1, grad1 = one_rank()
+    value1 = value1.detach()
+    one_ms = host_ms(one_rank, 5)
+
+    # the unsharded chains, the reference of the sharded run
+    model = lifted_model(x_rec, BoundedActor)
+    kw = dict(num_warmup=PAR_WARMUP, num_samples=PAR_SAMPLES,
+              num_chains=CHAINS, max_depth=PAR_DEPTH, chunk_steps=PAR_CHUNK)
+    t0 = time.perf_counter()
+    mc1 = MCMC(model, **kw).run(PAR_SEED)
+    torch.cuda.synchronize()
+    mc1_s = time.perf_counter() - t0
+    mc1_leap = mc1_s * 1e3 / mc1.value_and_grad.replays
+    x_exact = BoundedActor(T=PAR_EXACT_T, device=dev,
+                           dtype=torch.float64).simulate(
+        torch.Generator(device=dev).manual_seed(PAR_SEED),
+        n=PAR_EXACT_TRIALS)
+    exact1 = MCMC(lifted_model(x_exact, BoundedActor), **EXACT_KW).run(
+        PAR_SEED)._samples_u
+    z1 = mc1._samples_u.double().flatten(0, 1)
+    mean1, sd1 = z1.mean(0), z1.std(0)
+    n_draws = mc1._samples_u.shape[0] * mc1._samples_u.shape[1]
+
+    def ess_of(samples):  # each parameter's ESS, at most the draws
+        return torch.tensor([min(ess(samples[..., k].numpy()), n_draws)
+                             for k in range(samples.shape[-1])],
+                            dtype=torch.float64)
+
+    ess1 = ess_of(mc1._samples_u)
+    # the captured value+grad at the unsharded run's last draws, the first
+    # transition, and where the batch enters a chain's bits
+    z_rows = mc1._samples_u[:, -1].to(dev)
+    pe_rows, g_rows = (v.cpu() for v in mc1.value_and_grad(z_rows))
+    first1 = MCMC(model, num_warmup=0, num_samples=1, num_chains=CHAINS,
+                  max_depth=PAR_DEPTH).run(PAR_SEED)._samples_u[:, 0]
+    bits = batch_bits(model.potential, z_rows)
+    readings["batch_bits"] = bits
+    log(f"[{card}] a chain's value+grad of the recovery potential, eager, "
+        f"at {CHAINS // 2} chains against its rows at {CHAINS} (phase 19's "
+        f"sharded NUTS): {json.dumps(bits)}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"x_ll": x_ll, "x_sp": x_sp, "x_rec": x_rec,
+                    "x_exact": x_exact, "z_rows": z_rows},
+                   os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        ctx = tmp_mp.start_processes(parallel_rank,
+                                     args=(tmp, PAR_RANKS, dev.type),
+                                     nprocs=PAR_RANKS, join=False,
+                                     start_method="spawn")
+        deadline = time.monotonic() + PAR_JOIN_S
+        try:
+            while not ctx.join(timeout=5):
+                require(time.monotonic() < deadline,
+                        f"phase 19: the ranks did not end in {PAR_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        ranks_s = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(PAR_RANKS)]
+
+        backend = outs[0]["backend"]
+        require(all(o["backend"] == backend and o["world"] == PAR_RANKS
+                    for o in outs), "phase 19: the ranks' backends")
+        require(backend == ("nccl" if torch.cuda.device_count() >= PAR_RANKS
+                            else "gloo"),
+                f"phase 19: backend {backend} with "
+                f"{torch.cuda.device_count()} cards")
+        for r, o in enumerate(outs):
+            value, grad, n_ll, ll_ms = o["ll"]
+            require(n_ll == dict.fromkeys(names, 1),
+                    f"rank {r}: the trial-sharded value+grad runs K1-K4 "
+                    f"once each, got {n_ll}")
+            require(within(value.double(), value1.cpu().double(), POT_RTOL,
+                           0.0)
+                    and all(within(a.double(), b.cpu().double(),
+                                   POT_GRAD_RTOL, 0.0)
+                            for a, b in zip(grad, grad1)),
+                    f"rank {r}: trial-sharded value {float(value)} vs "
+                    f"{float(value1)}, gradient {grad} vs {grad1}")
+            ll_sp, g_sp, n_sp, sp_ms = o["sp"]
+            require(n_sp == {"gains_fwd": 1, "gains_bwd": 1, "ll_fwd": 0,
+                             "ll_bwd": 0},
+                    f"rank {r}: the horizon-sharded value+grad runs K1 and "
+                    f"K2 once and no K3/K4, got {n_sp}")
+            sp_grad_rel = max(float(((a - b.cpu()) / b.cpu()).abs())
+                              for a, b in zip(g_sp, g_sp1))
+            require(within(ll_sp, ll_sp1.cpu(), LL_RTOL, LL_ATOL)
+                    and all(within(a, b.cpu(), POT_GRAD_RTOL, 0.0)
+                            for a, b in zip(g_sp, g_sp1)),
+                    f"rank {r}: horizon-sharded vs one-device pscan: value "
+                    f"{float((ll_sp - ll_sp1.cpu()).abs().max())}, gradient "
+                    f"rel {sp_grad_rel}")
+            samples, steps, n_mc, wall, replays = o["chains"]
+            require(all(v > 0 for v in n_mc.values()),
+                    f"rank {r}: chain-sharded NUTS bypassed a kernel {n_mc}")
+            mine = slice(r * CHAINS // PAR_RANKS,
+                         (r + 1) * CHAINS // PAR_RANKS)
+            pe_r, g_r = o["rows"]
+            rows_err = (float((pe_r.double() - pe_rows[mine].double()).abs()
+                              .max()),
+                        float((g_r.double() - g_rows[mine].double()).abs()
+                              .max()))
+            require(within(pe_r.double(), pe_rows[mine].double(), POT_RTOL,
+                           0.0)
+                    and within(g_r.double(), g_rows[mine].double(),
+                               POT_GRAD_RTOL, 0.0),
+                    f"rank {r}: captured value+grad at {CHAINS // PAR_RANKS}"
+                    f" chains vs at {CHAINS}, max abs diffs {rows_err}")
+            first_err = float(((o["first"] - first1).abs().double() / sd1)
+                              .max())
+            require(first_err <= PAR_FIRST_SDS,
+                    f"rank {r}: the first transition's draws vs unsharded, "
+                    f"in posterior sds: {first_err}")
+            # posterior means within PAR_SES standard errors of their
+            # difference
+            z_s = samples.double().flatten(0, 1)
+            se = sd1 * (1 / ess1 + 1 / ess_of(samples)).sqrt()
+            far = (z_s.mean(0) - mean1).abs() / se
+            require(samples.shape == mc1._samples_u.shape
+                    and bool(torch.isfinite(samples).all())
+                    and bool((far <= PAR_SES).all()),
+                    f"rank {r}: sharded posterior means vs unsharded, in "
+                    f"standard errors: {far.tolist()} (ESS {ess1.tolist()})")
+            budget_s, budget_replays, budget_same = o["budget"]
+            require(budget_same,
+                    f"rank {r}: a binding leapfrog budget changed the draws")
+            stopped, resumed = o["resumed"]
+            require(stopped is None and torch.equal(resumed, samples),
+                    f"rank {r}: resumed draws vs uninterrupted, max abs diff "
+                    f"{float((resumed - samples).abs().max())}")
+            exact_err = float((o["exact"] - exact1).abs().max())
+            require(exact_err <= PAR_EXACT_ATOL,
+                    f"rank {r}: float64 sharded draws vs unsharded "
+                    f"{exact_err}")
+            launches[f"rank {r} trial-sharded value+grad"] = n_ll
+            launches[f"rank {r} horizon-sharded"] = n_sp
+            launches[f"rank {r} chain-sharded NUTS"] = n_mc
+            log(f"[{card}] rank {r} of {PAR_RANKS} ({backend}, {o['device']})"
+                f": trial-sharded value+grad of {x_ll.shape[0]} trials at "
+                f"T={T_FIT} {ll_ms:.3f} ms host wall (one process "
+                f"{one_ms:.3f} ms), value rel err "
+                f"{float(abs(value.double() / value1.cpu().double() - 1)):.3e}"
+                f", launches {n_ll}; horizon-sharded T={PSCAN_TS[-1]} "
+                f"{sp_ms:.3f} ms host wall, max abs diff to one-device pscan "
+                f"{float((ll_sp - ll_sp1.cpu()).abs().max()):.3e}, launches "
+                f"{n_sp}; chain-sharded NUTS ({CHAINS // PAR_RANKS} of "
+                f"{CHAINS} chains, {PAR_WARMUP} + {PAR_SAMPLES} transitions, "
+                f"max_depth {PAR_DEPTH}) {wall:.2f} s, {replays} leapfrogs, "
+                f"{wall * 1e3 / replays:.3f} ms a leapfrog against "
+                f"{mc1_leap:.3f} ms unsharded, "
+                f"{budget_s * 1e3 / budget_replays:.3f} ms with a leapfrog "
+                f"budget of {PAR_BUDGET} (a pmax each transition; the same "
+                f"draws); captured value+grad at its chains vs at {CHAINS}, "
+                f"max abs diffs (value, grad) {rows_err}; first transition's "
+                f"draws max diff {first_err:.3e} posterior sds; posterior means "
+                f"{max(far.tolist()):.3f} standard errors apart at most "
+                f"({[round(v, 3) for v in far.tolist()]}, ESS unsharded "
+                f"{[round(v, 1) for v in ess1.tolist()]}; in unsharded sds "
+                f"{max(((z_s.mean(0) - mean1).abs() / sd1).tolist()):.3f}; "
+                f"draws the same bits: "
+                f"{torch.equal(samples, mc1._samples_u)}); resumed the same "
+                f"bits; launches (warm-up and capture) {n_mc}; float64 "
+                f"(T={PAR_EXACT_T}, {PAR_EXACT_TRIALS} trials, "
+                f"{PAR_EXACT_DRAWS} + {PAR_EXACT_DRAWS}) draws max abs diff "
+                f"to the unsharded run {exact_err:.3e}; horizon-sharded "
+                f"gradient rel err to one-device pscan {sp_grad_rel:.3e}")
+        require(all(torch.equal(o["ll"][0], outs[0]["ll"][0])
+                    and torch.equal(o["sp"][0], outs[0]["sp"][0])
+                    and torch.equal(o["chains"][0], outs[0]["chains"][0])
+                    for o in outs), "phase 19: the ranks' results differ")
+        readings["ranks"] = {
+            "backend": backend, "world": PAR_RANKS, "spawn_to_end_s": ranks_s,
+            "one_process_value_grad_ms": one_ms,
+            "sharded_value_grad_ms": [o["ll"][3] for o in outs],
+            "horizon_sharded_value_grad_ms": [o["sp"][3] for o in outs],
+            "ms_per_leapfrog_sharded": [o["chains"][3] * 1e3 / o["chains"][4]
+                                        for o in outs],
+            "ms_per_leapfrog_sharded_budget": [
+                o["budget"][0] * 1e3 / o["budget"][1] for o in outs],
+            "ms_per_leapfrog_unsharded": mc1_leap}
+
+        # a one-rank nccl group through the trial-sharded likelihood
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                                world_size=1, rank=0)
+        try:
+            total_ll = sharded_log_likelihood(
+                lambda p: BoundedActor(T=T_FIT, device=dev, **p), x_ll,
+                local_mesh(device=dev))
+
+            def nccl_grad():
+                value = total_ll(params)
+                return value, torch.autograd.grad(value,
+                                                  list(params.values()))
+
+            for fn in counters:
+                fn.launches = 0
+            value, grad = nccl_grad()
+            torch.cuda.synchronize()
+            n_nccl = {k: fn.launches for k, fn in zip(names, counters)}
+            nccl_ms = host_ms(nccl_grad, 5)
+            backend_1 = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        require(backend_1 == "nccl" and n_nccl == dict.fromkeys(names, 1),
+                f"one-rank nccl: backend {backend_1}, launches {n_nccl}")
+        require(within(value.detach(), value1, POT_RTOL, 0.0)
+                and all(within(a, b, POT_GRAD_RTOL, 0.0)
+                        for a, b in zip(grad, grad1)),
+                "one-rank nccl: value+grad vs one process")
+        launches["one-rank nccl trial-sharded value+grad"] = n_nccl
+        readings["nccl_one_rank_value_grad_ms"] = nccl_ms
+        log(f"[{card}] one-rank nccl group: trial-sharded value+grad "
+            f"{nccl_ms:.3f} ms host wall against {one_ms:.3f} ms without a "
+            f"group; the same bits as one process: "
+            f"{torch.equal(value.detach(), value1)}; launches {n_nccl}")
+    log(f"phase 19: {time.perf_counter() - t_all:.1f} s")
+    return launches, readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2918,6 +3585,17 @@ def main() -> int:
         if entry["name"] in tool_launches:
             entry["fit_script_launches"] = tool_launches[entry["name"]]
     log(f"data and fit tools (phase 18): {json.dumps(tool_readings)}")
+    # 19. the parallel layer: pscan beside the kernels, ranks on the card
+    par_launches, par_readings = parallel_layer(dev, card, counters, names,
+                                                x_fit, x_rec)
+    k_by_name = {"gains_fwd": "gains_fwd_block", "gains_bwd": "gains_bwd",
+                 "ll_fwd": "ll_fwd", "ll_bwd": "ll_bwd"}
+    for entry in kernels:
+        for counter, name in k_by_name.items():
+            if entry["name"] == name:
+                entry["parallel_launches"] = {
+                    path: n[counter] for path, n in par_launches.items()}
+    log(f"parallel layer (phase 19): {json.dumps(par_readings)}")
     log(f"zoo launches (phase 15): {json.dumps(zoo_launches)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

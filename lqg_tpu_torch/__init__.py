@@ -23,7 +23,11 @@ tools are the JAX package's: the dataset loader (:mod:`lqg_tpu_torch.io`),
 posterior files (:mod:`lqg_tpu_torch.results`), cross-correlograms
 (:func:`xcorr`, :mod:`lqg_tpu_torch.ccg`), the alternate gains
 (``System.gains(method="sqrt"|"steady")``) and the fit scripts
-(``scripts/torch_*.py``).
+(``scripts/torch_*.py``).  The parallel layer (:mod:`lqg_tpu_torch.parallel`)
+has the associative scans (``System.log_likelihood(method="pscan")``) and
+a mesh over ``torch.distributed`` ranks, one process per device, over which
+the likelihood shards its trials or its horizon and NUTS its chains
+(``MCMC.run(chain_sharding=)``).
 """
 
 __version__ = "0.1.0"

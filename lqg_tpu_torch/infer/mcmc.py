@@ -17,9 +17,11 @@
 * On the card each leapfrog's value and gradient of the potential is a
   replay of one captured CUDA graph (:mod:`lqg_tpu_torch.infer.capture`),
   the counterpart of JAX compiling the transition into one program.
-
-Chains sharded over devices or processes (``chain_sharding``) come with
-ROADMAP Queue 1 item 13.
+* With ``chain_sharding`` each rank of a mesh axis runs its contiguous
+  block of the chains (:func:`lqg_tpu_torch.parallel.sharding.
+  sharded_chains_run`): the draws of the full block are drawn and sliced,
+  so a sharded run gives the unsharded run's draws chain for chain, and
+  every rank gathers all chains' draws after each chunk.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from lqg_tpu_torch.infer import adaptation as adapt
 from lqg_tpu_torch.infer.capture import value_and_grad_fn
 from lqg_tpu_torch.infer.hmc import NUTSDraws, draw_nuts, nuts_step
 from lqg_tpu_torch.infer.models import ProbModel
+from lqg_tpu_torch.parallel.mesh import _world
 
 
 class ChainState(NamedTuple):
@@ -93,6 +96,34 @@ def _rebuild(template, leaves):
         return next(it)
 
     return build(template)
+
+
+def _barrier(device):
+    """Wait until every process of the world gets here (a no-op for one):
+    an all-reduce the host waits on, which every backend offers."""
+    if _world()[0] > 1:
+        x = torch.zeros(1, device=device)
+        torch.distributed.all_reduce(x)
+        x.cpu()
+
+
+def _check_resume(steps_done: int, path: str, device):
+    """In multi-process runs every process read ``path`` on its own; a
+    path that is not on a shared filesystem gives divergent resume or
+    fresh-start decisions, and the collectives that follow would deadlock.
+    The resume step is checked against process 0's instead."""
+    world, rank = _world()
+    if world <= 1:
+        return
+    p0 = torch.tensor([steps_done], dtype=torch.int64).to(device)
+    torch.distributed.broadcast(p0, src=0)
+    p0_step = int(p0.cpu())
+    if p0_step != steps_done:
+        raise RuntimeError(
+            f"multi-process checkpoint resume diverged: process 0 is at "
+            f"step {p0_step} but process {rank} read step {steps_done} from "
+            f"{path}. checkpoint_path must be on a filesystem shared by all "
+            f"processes (process 0 writes, every process reads)")
 
 
 class MCMC:
@@ -258,13 +289,19 @@ class MCMC:
                 transition's draws depend on its index alone, so chunk
                 boundaries (even another ``chunk_steps``) do not change the
                 sampled trajectory.
-            chain_sharding: not ported yet (ROADMAP Queue 1, item 13).
+                In multi-process runs the path must be on a filesystem
+                shared by all processes (process 0 writes the checkpoint of
+                all chains, every process reads it; a divergent read
+                raises instead of deadlocking), and a checkpoint resumes
+                sharded or not, whichever way it was written.
+            chain_sharding: optional :class:`lqg_tpu_torch.parallel.mesh.
+                AxisSharding` of the chain axis: this rank runs its block of
+                the chains, with the value+grad captured at that batch, and
+                every rank ends with all chains' draws (used by
+                :func:`lqg_tpu_torch.parallel.sharding.sharded_chains_run`).
             _stop_after_launches: testing hook - stop (returning ``None``)
                 after this many chunks, leaving the checkpoint behind.
         """
-        if chain_sharding is not None:
-            from lqg_tpu_torch.system import _not_ported
-            raise _not_ported("chain_sharding", "item 13")
         total = self.num_warmup + self.num_samples * self.thinning
         chunk = min(self.chunk_steps, total)
         flags, caps = self._build_schedule(total)
@@ -281,7 +318,26 @@ class MCMC:
                            else 2 <= D <= 64)
         draws = (Draws(rng, u0.device) if isinstance(rng, (int, np.integer))
                  else rng)
-        jitter, eps = draws.init(C, D, u0.dtype)
+        # this rank's chains; every rank's, gathered along the mesh axis
+        mine, (mesh, axis) = slice(None), (None, None)
+        if chain_sharding is not None:
+            mine, (mesh, axis) = chain_sharding.block(C), chain_sharding
+
+        def gather(tensors):
+            return list(tensors) if mesh is None else mesh.gather(tensors,
+                                                                  axis)
+
+        def deepest(steps):  # the deepest tree of all ranks' chains
+            return steps.max() if mesh is None else mesh.pmax(steps.max(),
+                                                               axis)
+
+        # the leapfrog budget can end a chunk only if a chunk's trees may
+        # reach it (a tree has fewer than 2**max_depth leaves); else the
+        # trees' sizes go unread, a host read (and, sharded, a collective)
+        # each transition spared
+        budget_binds = (self.max_leapfrogs_per_launch
+                        <= (chunk - 1) * 2 ** self.max_depth)
+        jitter, eps = (a[mine] for a in draws.init(C, D, u0.dtype))
         z0 = u0[None, :] + self.init_jitter * jitter
         self.value_and_grad = value_and_grad_fn(self.model.potential, z0)
         state = self._init_chain(z0, eps)
@@ -294,11 +350,24 @@ class MCMC:
             resumed = self._load_run_checkpoint(checkpoint_path, state)
             if resumed is not None:
                 state, outs_host, steps_done, nonce, n_files = resumed
+                # the checkpoint holds every chain
+                state = _rebuild(state, [x[mine] for x in _leaves(state)])
                 if self.progress:
                     print(f"[mcmc] resumed at step {steps_done}/{total} "
                           f"from {checkpoint_path}", flush=True)
             else:
                 self._clean_orphan_chunks(checkpoint_path)
+            _check_resume(steps_done, checkpoint_path, u0.device)
+
+        def save(pending):
+            # every rank gathers; rank 0 writes; no rank goes on (to a
+            # resume that reads the files) before the write is done
+            full = _rebuild(state, gather(_leaves(state)))
+            n = (self._save_run_checkpoint(checkpoint_path, full, pending,
+                                           steps_done, nonce, n_files)
+                 if _world()[1] == 0 else n_files + 1)
+            _barrier(u0.device)
+            return n
 
         launches = 0
         while steps_done < total:
@@ -307,24 +376,25 @@ class MCMC:
                    and leapfrogs < self.max_leapfrogs_per_launch):
                 step_draws = draws.transition(steps_done, C, D,
                                               self.max_depth, u0.dtype)
-                state, out = self._step_one(state, step_draws,
-                                            flags[steps_done],
-                                            caps[steps_done])
+                state, out = self._step_one(
+                    state, NUTSDraws(*(a[mine] for a in step_draws)),
+                    flags[steps_done], caps[steps_done])
                 outs.append(out)
                 steps_done += 1
-                # the batched cost of a transition: the deepest chain's tree
-                leapfrogs += float(out[3].max())
-            host_out = tuple(torch.stack([o[i] for o in outs]).cpu().numpy()
-                             for i in range(6))
+                if budget_binds:
+                    # a transition's batched cost: the deepest chain's tree
+                    leapfrogs += float(deepest(out[3]))
+            # (steps_k, chains, ...), every rank's chains
+            host_out = tuple(
+                x.movedim(0, 1).cpu().numpy() for x in gather(
+                    [torch.stack([o[i] for o in outs], 1) for i in range(6)]))
             outs_host.append(host_out)
             pending.append(host_out)
             launches += 1
 
             if checkpoint_path is not None and (
                     launches % ckpt_every == 0 or steps_done >= total):
-                n_files = self._save_run_checkpoint(
-                    checkpoint_path, state, pending, steps_done, nonce,
-                    n_files)
+                n_files = save(pending)
                 pending = []
             if self.progress:
                 acc = float(np.mean(host_out[1]))
@@ -336,9 +406,7 @@ class MCMC:
                     and launches >= _stop_after_launches
                     and steps_done < total):
                 if checkpoint_path is not None and pending:
-                    n_files = self._save_run_checkpoint(
-                        checkpoint_path, state, pending, steps_done, nonce,
-                        n_files)
+                    n_files = save(pending)
                 return None
 
         # concat per-chunk outputs along the step axis, chains to front
@@ -351,11 +419,11 @@ class MCMC:
             a[:, sel] for a in (zs, accept, div, steps, depth, pes))
 
         self._samples_u = torch.from_numpy(zs)  # (chains, draws, zdim)
+        step_size, inv_mass = gather([state.step_size, state.inv_mass])
         self._extra = dict(accept_prob=accept, diverging=div,
                            num_steps=steps, tree_depth=depth,
                            potential_energy=pes,
-                           step_size=state.step_size,
-                           inv_mass=state.inv_mass)
+                           step_size=step_size, inv_mass=inv_mass)
         return self
 
     # --- in-flight run checkpointing ---
@@ -375,7 +443,10 @@ class MCMC:
 
     def _clean_orphan_chunks(self, path):
         """Starting fresh: remove chunk files a previous run at the same
-        path left behind, so they can never be mistaken for this run's."""
+        path left behind, so they can never be mistaken for this run's.
+        In multi-process runs process 0 does it."""
+        if _world()[1] != 0:
+            return
         for p in glob.glob(f"{path}.chunk_*.npz"):
             try:
                 os.remove(p)

@@ -443,8 +443,46 @@ def fused_gains_vjp(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar):
     return tuple(out)
 
 
+def _twin_spec(A, Bm, Q, R, Qf, F, V, W) -> LQGSpec:
+    """The stationary spec of K1's inputs, affine terms zero."""
+    zeros = lambda *shape: A.new_zeros(A.shape[:1] + shape)
+    n, m = Bm.shape[-2:]
+    return LQGSpec(Q=Q, q=zeros(n), Qf=Qf, qf=zeros(n), P=zeros(m, n), R=R,
+                   r=zeros(m), A=A, B=Bm, V=V, F=F, W=W, zero_affine=True)
+
+
+def _scan_gains(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int):
+    """The scans' gains, the differentiable twin of K1."""
+    from lqg_tpu_torch.ops import kalman, riccati
+
+    g = riccati.backward(spec, horizon=horizon, regularize="none")
+    K = kalman.forward(spec, Sigma0=Sigma0, horizon=horizon)
+    return g.L, g.H, K
+
+
+def _assoc_gains(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int):
+    """The associative scans' gains (:mod:`lqg_tpu_torch.parallel.pscan`),
+    the O(log T)-depth differentiable twin of K1: the same math as
+    :func:`_scan_gains`."""
+    from lqg_tpu_torch.parallel.pscan import (kalman_forward_assoc,
+                                              lqr_backward_assoc)
+
+    g = lqr_backward_assoc(spec, horizon=horizon)
+    K = kalman_forward_assoc(spec, Sigma0=Sigma0, horizon=horizon)
+    return g.L, g.H, K
+
+
+# The backward of fused_gains, read when it runs (gains.py:600-618):
+#   "kernel" - K2, the analytic adjoint (the default);
+#   "scan"   - autograd through the scans' twin;
+#   "assoc"  - autograd through the associative scans' twin.
+GAINS_VJP_METHOD = "kernel"
+VJP_METHODS = ("kernel", "scan", "assoc")
+
+
 class _FusedGains(torch.autograd.Function):
-    """K1 forward, K2 backward; every input is ``(B, ., .)``."""
+    """K1 forward, K2 backward (or, by :data:`GAINS_VJP_METHOD`, autograd
+    through a twin); every input is ``(B, ., .)``."""
 
     @staticmethod
     def forward(ctx, A, Bm, Q, R, Qf, F, V, W, Sigma0, horizon):
@@ -453,13 +491,28 @@ class _FusedGains(torch.autograd.Function):
         out = gains_fwd(A, Bm, Q, R, Qf, F, VV, WW, Sigma0, horizon,
                         stores=grad)
         if grad:
-            ctx.save_for_backward(A, Bm, R, F, V, W, VV, WW, *out[3:])
+            ctx.save_for_backward(A, Bm, R, F, V, W, VV, WW, *out[3:], Q, Qf,
+                                  Sigma0)
+            ctx.horizon = horizon
         return out[:3]
 
     @staticmethod
     @once_differentiable
     def backward(ctx, Lbar, Hbar, Kbar):
-        A, Bm, R, F, V, W, VV, WW, S_st, P_st = ctx.saved_tensors
+        (A, Bm, R, F, V, W, VV, WW, S_st, P_st, Q, Qf,
+         Sigma0) = ctx.saved_tensors
+        if GAINS_VJP_METHOD not in VJP_METHODS:
+            raise ValueError(f"GAINS_VJP_METHOD must be one of {VJP_METHODS},"
+                             f" got {GAINS_VJP_METHOD!r}")
+        if GAINS_VJP_METHOD != "kernel":
+            twin = (_assoc_gains if GAINS_VJP_METHOD == "assoc"
+                    else _scan_gains)
+            with torch.enable_grad():
+                ins = [x.detach().requires_grad_()
+                       for x in (A, Bm, Q, R, Qf, F, V, W, Sigma0)]
+                out = twin(_twin_spec(*ins[:8]), ins[8], ctx.horizon)
+                bars = torch.autograd.grad(out, ins, (Lbar, Hbar, Kbar))
+            return (*bars, None)
         (Abar, Bbar, Qbar, Rbar, Qfbar, Fbar, VVbar, WWbar,
          S0bar) = fused_gains_vjp(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
                                   Kbar)

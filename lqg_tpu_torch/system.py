@@ -57,11 +57,6 @@ def _batch_shape(spec: LQGSpec) -> torch.Size:
     return spec.Qf.shape[:-2]
 
 
-def _not_ported(method: str, item: str):
-    return NotImplementedError(
-        f"method={method!r} is not ported yet (ROADMAP.md Queue 1, {item})")
-
-
 class System:
     """An actor (subjective internal model) controlling true dynamics.
 
@@ -344,8 +339,11 @@ class System:
                 applies, else the scan), ``"fused"`` (K3; its plain version
                 on the CPU), ``"blocked"`` (K5, likewise) or ``"scan"``
                 (:func:`gaussian.conditional_kernel` and
-                :func:`gaussian.trial_log_likelihood`).  ``"pscan"`` is not
-                ported yet.
+                :func:`gaussian.trial_log_likelihood`) or ``"pscan"`` (the
+                associative scan, O(log T) rounds of batched ops: for long
+                horizons and for sharding the horizon over ranks, see
+                :func:`lqg_tpu_torch.parallel.pscan.trial_log_likelihood_assoc`;
+                ``"auto"`` never picks it).
             gains_method: the :meth:`gains` method.  ``"scan"`` with
                 ``method="scan"`` keeps the whole likelihood on the scans,
                 which autograd differentiates twice (a Hessian), where
@@ -353,8 +351,6 @@ class System:
         """
         d = x.shape[-1]
         self._check_obs(x)
-        if method == "pscan":
-            raise _not_ported(method, "item 14")
         # trajectories shared by the parameter sets: autograd sums along P
         x = x.expand(torch.broadcast_shapes(self.batch_shape, x.shape[:-3])
                      + x.shape[-3:])
@@ -372,9 +368,14 @@ class System:
             F, Q = (torch.movedim(M, 0, 1) for M in (F, G @ mT(G)))
             ll = kernel(F, Q, x[None] if one else x)
             return ll[0] if one else ll
+        if method == "pscan":
+            from lqg_tpu_torch.parallel.pscan import trial_log_likelihood_assoc
+
+            return trial_log_likelihood_assoc(joint, x)
         if method != "scan":
             raise ValueError(
-                f"method must be auto|fused|blocked|scan, got {method!r}")
+                f"method must be auto|fused|blocked|scan|pscan, got "
+                f"{method!r}")
         kernel = gaussian.conditional_kernel(joint, d)
         return gaussian.trial_log_likelihood(kernel, x)
 

@@ -199,13 +199,23 @@ def test_leapfrog_budget_keeps_the_draws():
     assert torch.equal(tight._samples_u, ref._samples_u)
 
 
-def test_mcmc_defaults_and_not_ported_options():
+def test_mcmc_defaults_and_one_rank_chain_sharding():
+    """The defaults; and ``chain_sharding`` over the chains axis of a
+    one-rank mesh (no process group) gives the unsharded draws."""
+    from lqg_tpu_torch.parallel.mesh import AxisSharding, make_mesh
+
     model = _gaussian_model()
     assert MCMC(model).chunk_steps == 64
     assert MCMC(model).max_leapfrogs_per_launch == 1 << 30
     assert MCMC(model, chunk_steps=7).chunk_steps == 7
-    with pytest.raises(NotImplementedError, match="item 13"):
-        MCMC(model, **KW).run(0, chain_sharding=object())
+    mesh = make_mesh([("chains", 1)], device="cpu")
+    sharded = MCMC(model, **KW).run(
+        0, chain_sharding=AxisSharding(mesh, "chains"))
+    ref = MCMC(model, **KW).run(0)
+    assert torch.equal(sharded._samples_u, ref._samples_u)
+    for k, v in ref.get_extra_fields().items():
+        np.testing.assert_array_equal(np.asarray(sharded._extra[k]),
+                                      np.asarray(v))
 
 
 def test_infer_and_sample_from_prior_on_the_cpu():

@@ -165,20 +165,23 @@ def test_golden_log_likelihood(case):
     np.testing.assert_allclose(ll.numpy(), data["log_likelihood"], rtol=1e-5)
 
 
-def test_methods_not_ported_raise():
+def test_methods_pscan_and_the_unknown_raise():
+    """``method="pscan"`` (the associative scan, ``tests/test_torch_pscan.py``)
+    gives the scan's value; an unknown method raises, listing pscan."""
     m = tmodels.BoundedActor(T=5, device="cpu")
     x = m.simulate(None, n=1)
     # "sqrt" and "steady" are ported (tests/test_torch_sqrt_dare.py)
     with pytest.raises(ValueError, match=re.escape(
             "method must be auto|fused|scan|sqrt|steady, got 'bogus'")):
         m.gains(method="bogus")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.log_likelihood(x, method="pscan")
+    np.testing.assert_allclose(m.log_likelihood(x, method="pscan").numpy(),
+                               m.log_likelihood(x, method="scan").numpy(),
+                               rtol=1e-5)
     # "blocked" is ported: the bounded actor's j = 4 is outside its scope
     with pytest.raises(ValueError, match="scope"):
         m.log_likelihood(x, method="blocked")
     with pytest.raises(ValueError, match=re.escape(
-            "method must be auto|fused|blocked|scan, got 'bogus'")):
+            "method must be auto|fused|blocked|scan|pscan, got 'bogus'")):
         m.log_likelihood(x, method="bogus")
 
 

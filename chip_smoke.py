@@ -115,7 +115,7 @@ beside it.  Phases, each fatal on failure:
     ``fit_auto_iaf`` for 1,500 steps of 16 particles (``fit_data.py``
     takes 3,000), the graphed ELBO (float32) against eager float64 on one
     ``eps``; ``fit_auto_mvn`` for 300 steps of 8 particles;
-    ``laplace_guide`` at the MAP (the scans, cut to T=180: 124.76 s at
+    ``laplace_guide`` at the MAP (the scans, cut to T=120: 124.76 s at
     T=1008);
     ``neutra_reparam`` with the IAF, a 200-step polish in the warped space
     and ``MCMC`` on 4 chains, 100 warmup + 100 samples, ``max_depth=8``,
@@ -156,7 +156,27 @@ beside it.  Phases, each fatal on failure:
     same bits, and in float64 the sharded draws against the unsharded
     run's; K1-K4's launches per rank and path, ms a leapfrog sharded (with
     and without the budget) and unsharded; and a one-rank nccl group
-    through the trial-sharded value+grad.
+    through the trial-sharded value+grad;
+20. K1-K4 over lqg_tpu's whole kernel scope (n <= 8, m <= 2, p <= 3; j <=
+    12, d <= 4): K1 (both designs, the same bits, with the stores) and K2 at
+    every gains instance added for ``TemporalDelayModel`` at delays 1-3,
+    (4, 6, 8 states at m = 1, p = 1-2), at the envelopes (8, 1, 3), (8, 2,
+    1-3) and at (3, 2, 3) and (7, 1, 3), padded onto them, 24 specs at
+    T=1008; K3 (both variants) and K4 at (12, 1-4) and at (6, 3) and (3,
+    1), padded, 24 sets x 20 trials at T=1008; each against its plain
+    version at the true shape (K2 the plain version in float64 on the same
+    float32 stores), two K2 and two K4 launches the same bits,
+    each timed beside its bound at the true shape's work, with its
+    registers and spills (``scope_shapes`` in the kernels line); then the
+    gradient path of ``TemporalDelayModel(BoundedActor, delay=1)`` (K1/K2
+    at (4, 1, 2), K3/K4 at (8, 2)), ``delay=2`` ((6, 1, 2), (12, 2)) and
+    ``TemporalDelayModel(RelativeObservationBoundedActor, delay=3)`` ((8,
+    1, 1), K5/K6 at j=16), 4 chains x 6 conditions x 20 trials at T=1008:
+    one eager value+grad with the counters and a counter on the scans
+    zeroed just before and read just after (each kernel once, no scan),
+    against eager float64, replayed from a CUDA graph against eager, and
+    its replay and eager times beside the scan route's
+    (``method="scan"``), which ``auto`` took at these shapes before.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -240,6 +260,42 @@ ZOO_PATHS = {
         ["action_cost", "action_variability"]),
 }
 ZOO_MECHANICAL = ("damping", "m", "tau")
+# phase 20, K1-K4 over lqg_tpu's whole kernel scope: the instances added for
+# TemporalDelayModel at delays 1-3 and the envelopes at n = 8 and j = 12,
+# two padded shapes of each pair, and the delay models' gradient paths.
+# Each gains instance's model (base model, delay; the point mass at delay 1
+# is (8, 1, 3)), None for a random spec whose open loop is stable; each likelihood instance's model (a callable
+# of the per-condition parameter and the keywords), the parameter and the
+# dims observed, None for a random stable joint system
+SCOPE_GAINS = {(4, 1, 2): ("BoundedActor", 1), (6, 1, 2): ("BoundedActor", 2),
+               (8, 1, 2): ("BoundedActor", 3),
+               (4, 1, 1): ("RelativeObservationBoundedActor", 1),
+               (6, 1, 1): ("RelativeObservationBoundedActor", 2),
+               (8, 1, 1): ("RelativeObservationBoundedActor", 3),
+               (8, 1, 3): ("PointMassBoundedActor", 1), (8, 2, 1): None,
+               (8, 2, 2): None, (8, 2, 3): None, (3, 2, 3): None,
+               (7, 1, 3): None}
+SCOPE_LL = {(12, 2): ("delay", "BoundedActor", 2),
+            (12, 1): ("delay", "RelativeObservationBoundedActor", 2),
+            (12, 3): ("dim", "RelativeObservationBoundedActor", 3),
+            (12, 4): ("dim", "BoundedActor", 3),
+            (6, 3): None, (3, 1): None}
+# the gradient paths: the wrapped model, its delay, the parameter that
+# differs between conditions, the shared parameters, the kernels a
+# value+grad launches (each once) and the gains and likelihood instances
+SCOPE_PATHS = {
+    "TemporalDelayModel(BoundedActor, delay=1)": (
+        "BoundedActor", 1, "sigma_target", SHARED,
+        ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd"), (4, 1, 2), (8, 2)),
+    "TemporalDelayModel(BoundedActor, delay=2)": (
+        "BoundedActor", 2, "sigma_target", SHARED,
+        ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd"), (6, 1, 2), (12, 2)),
+    "TemporalDelayModel(RelativeObservationBoundedActor, delay=3)": (
+        "RelativeObservationBoundedActor", 3, "sigma",
+        ["action_cost", "action_variability"],
+        ("gains_fwd", "gains_bwd", "ll_blocked_fwd", "ll_blocked_bwd"),
+        (8, 1, 1), (16, 2)),
+}
 # K1 at the zoo's instances, as tests/test_pallas.py:60 holds the Pallas
 # kernel at n = 3-4 (PointMass's |L| reaches ~70)
 ZOO_GAINS_ATOL = 5e-4
@@ -262,10 +318,10 @@ MAP_STEPS, MAP_STEP_SIZE, IAF_STEPS, MVN_STEPS = 300, 0.05, 1500, 300
 POLISH_STEPS, POLISH_STEP_SIZE = 200, 0.02
 NEUTRA_WARMUP, NEUTRA_SAMPLES, NEUTRA_DEPTH = 100, 100, 8
 # laplace_guide runs the scans eagerly, with a double-backward graph: at
-# T=1008 it took 124.76 s on an H100 and 46.94-55.58 s at T=360, so its
-# horizon is cut to keep it near half a minute (the other steps keep
-# T=1008)
-LAPLACE_T = 180
+# T=1008 it took 124.76 s on an H100, 46.94-55.58 s at T=360 and 27.5-29.1
+# s at T=180, so its horizon is cut to keep it near 20 s (the other steps
+# keep T=1008)
+LAPLACE_T = 120
 FIT_BATCHES = (1, 8, 16)  # points of the potential: MAP, MVN, IAF
 ELBO_GRAD_SCALED = 1e-3
 # phase 18, the data and fit tools: the synthetic data.mat at the data's
@@ -654,6 +710,9 @@ K1_SWEEP_B, K1_SWEEP_T = (1, 4, 24, 132, 264, 528, 1056, 2048, 16384), 1000
 K1_SHAPES = {(2, 1, 2): ((1, 1000), (4, 720), (24, 1008), (2048, 719),
                          (16384, 1000))}
 K1_ZOO_SHAPES = ((24, 1008), (2048, 719))
+# the instances added for the delay wrapper whose thread design does not
+# spill (n <= 6; -Xptxas -v): their crossover is measured too
+K1_SCOPE_SWEEP = ((4, 1, 2), (4, 1, 1), (6, 1, 2), (6, 1, 1))
 K1_BITS_B, K1_BITS_T = (1, 4, 24, 33), (1, 37, 1008)
 # the chain bound's latencies, estimated for Hopper: a dependent fp32 add,
 # multiply or fused multiply-add, and __frcp_rn (MUFU.RCP, two Newton FMAs
@@ -673,6 +732,8 @@ def k1_inputs(nmp, B, T_, dev):
         v = np.logspace(lo, hi, B) if log_ else np.linspace(lo, hi, B)
         return torch.tensor(v, dtype=torch.float32, device=dev)
 
+    if nmp in SCOPE_GAINS:
+        return scope_gains_inputs(nmp, B, T_, dev)
     if nmp == (2, 1, 2):
         sp = tracking_spec(1, 1.0, spread(0.1, 1.0), spread(2.0, 40.0),
                            spread(0.5, 10.0), spread(-2.0, 1.0, True),
@@ -825,16 +886,17 @@ def k1_designs_bits(dev, card, instances):
     return checked
 
 
-def k1_crossover(dev, card, layouts=None):
-    """Both K1 designs timed in turns (paired_ms) at every instance and B
-    in K1_SWEEP_B, T=K1_SWEEP_T, store-free and with the stores, beside
-    ``design="auto"``'s pick.  ``layouts`` ({instance: launching function})
-    replaces the block design by another launch (scripts/k1_designs.py).
-    Returns {(instance, B, stores): (thread ms, block ms, auto's pick)}."""
+def k1_crossover(dev, card, layouts=None, instances=K1_INSTANCES):
+    """Both K1 designs timed in turns (paired_ms) at each of ``instances``
+    and B in K1_SWEEP_B, T=K1_SWEEP_T, store-free and with the stores,
+    beside ``design="auto"``'s pick.  ``layouts`` ({instance: launching
+    function}) replaces the block design by another launch
+    (scripts/k1_designs.py).  Returns {(instance, B, stores): (thread ms,
+    block ms, auto's pick)}."""
     from lqg_tpu_torch.ops.kernels.gains import design_for, gains_fwd
 
     out = {}
-    for nmp in K1_INSTANCES:
+    for nmp in instances:
         for B in K1_SWEEP_B:
             ins = k1_inputs(nmp, B, K1_SWEEP_T, dev)[1]
             block = (layouts or {}).get(nmp)
@@ -962,10 +1024,10 @@ def zoo_paths(dev, card, names, all_counters, all_names):
         def forward():
             model.log_likelihood(model.simulate(g, n=LL_TRIALS)[..., :d])
 
-        warm = host_ms(forward, 2)
+        warm = host_ms(forward, 1)
         wall, busy, n_events, named = profile_ms(forward, names)
         log(f"[{card}] zoo forward path, {name}: warm host wall {warm:.1f} ms "
-            f"(median of 2); under torch.profiler wall {wall:.1f} ms, device "
+            f"(one call); under torch.profiler wall {wall:.1f} ms, device "
             f"busy {busy:.3f} ms ({100 * busy / wall:.2f}%) over {n_events} "
             f"events; " + ", ".join(f"{k} {v:.3f} ms"
                                     for k, v in named.items()))
@@ -1030,10 +1092,10 @@ def zoo_paths(dev, card, names, all_counters, all_names):
                 f"zoo gradient path, {name}, gradient vs float64: "
                 f"{float(grad_rel.max())}")
         without_sync(lambda: eager(u))
-        warm = host_ms(lambda: eager(u), 2)
+        warm = host_ms(lambda: eager(u), 1)
         wall, busy, n_events, named = profile_ms(lambda: eager(u), names)
         log(f"[{card}] zoo gradient path, {name}: warm host wall {warm:.1f} "
-            f"ms (median of 2); under torch.profiler wall {wall:.1f} ms, "
+            f"ms (one call); under torch.profiler wall {wall:.1f} ms, "
             f"device busy {busy:.3f} ms ({100 * busy / wall:.2f}%) over "
             f"{n_events} events; " + ", ".join(f"{k} {v:.3f} ms"
                                                for k, v in named.items())
@@ -1239,6 +1301,423 @@ def zoo_instances(dev, card):
         del x, sets, joint, F_, Q_, X, st, st_ref, got, again, want, args
         torch.cuda.empty_cache()
     return out
+
+
+def delayed(base_name, delay):
+    """``TemporalDelayModel(base(**kw), delay)`` as a model class with the
+    base model's constructor signature, which ``shared_params_lqg_model``
+    reads for the free parameters."""
+    from lqg_tpu_torch import models
+
+    base = getattr(models, base_name)
+
+    class Delayed(models.TemporalDelayModel):
+        def __init__(self, *args, **kw):
+            super().__init__(base(*args, **kw), delay=delay)
+
+    Delayed.__init__.__signature__ = inspect.signature(base.__init__)
+    Delayed.__name__ = f"Delayed{delay}{base_name}"
+    return Delayed
+
+
+def stable_spec(nmp, B, dev, seed):
+    """B random stationary specs at ``nmp`` whose open loop is stable (A =
+    0.9 I + noise; tests/test_pallas.py's ``_random_spec`` otherwise),
+    float32 on ``dev``."""
+    from lqg_tpu_torch.utils import stationary_spec
+
+    n, m, p = nmp
+    rng = np.random.default_rng(seed)
+    rnd = lambda *sh: 0.3 * rng.normal(size=sh)
+    sym = lambda M: 0.5 * (M + np.swapaxes(M, -1, -2))
+    f = dict(A=0.9 * np.eye(n) + 0.1 * rnd(B, n, n), B=rnd(B, n, m) + 0.5,
+             Q=sym(np.eye(n) + 0.05 * rnd(B, n, n)),
+             R=sym(0.8 * np.eye(m) + 0.01 * np.abs(rnd(B, m, m))),
+             F=rnd(B, p, n) + np.eye(p, n),
+             V=0.7 * np.eye(n) + 0.05 * rnd(B, n, n),
+             W=0.9 * np.eye(p) + 0.05 * rnd(B, p, p))
+    t = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+         for k, v in f.items()}
+    Qf = torch.tensor(sym(1.5 * np.eye(n) + 0.05 * rnd(B, n, n)),
+                      dtype=torch.float32, device=dev)
+    return stationary_spec(**t)._replace(Qf=Qf)
+
+
+def scope_gains_inputs(nmp, B, T_, dev):
+    """The actor spec of B parameter sets at ``nmp`` (the delay wrapper's
+    model, its action cost and target noise spread over the batch, or a
+    stable random spec) and K1's nine inputs from it, each ``(B, ., .)``."""
+    from lqg_tpu_torch.ops.linalg import mT
+
+    model = SCOPE_GAINS[nmp]
+    if model is None:
+        sp = stable_spec(nmp, B, dev, seed=sum(nmp))
+    else:
+        base, delay = model
+        noise = "sigma" if base.startswith("Relative") else "sigma_target"
+        sp = delayed(base, delay)(T=T_, device=dev, **{
+            "action_cost": torch.logspace(-1.0, 0.5, B, device=dev),
+            noise: torch.linspace(2.0, 40.0, B, device=dev)}).actor
+    VV = sp.V @ mT(sp.V)
+    return sp, [x.expand((B,) + x.shape[-2:]).contiguous() for x in (
+        sp.A, sp.B, sp.Q, sp.R, sp.Qf, sp.F, VV, sp.W @ mT(sp.W), VV)]
+
+
+def scope_ll_inputs(jd, dev, g):
+    """F, Q ``(P, T, j, j)`` and X ``(P, n, T+1, d)`` at ``jd`` for P = 4
+    chains x 6 conditions, 20 trials, T=1008: the model's joint systems
+    (its action cost per chain, its noise per condition) and trajectories it
+    simulates (with its default parameters, the same trials for every
+    set), or a stable random joint system (orthogonal transitions x 0.97)
+    with random-walk data."""
+    from lqg_tpu_torch import models
+    from lqg_tpu_torch.ops.linalg import mT
+
+    j, d = jd
+    P_ = CHAINS * CONDITIONS
+    if SCOPE_LL[jd] is None:
+        rng = np.random.default_rng(j + 10 * d)
+        A = np.stack([np.linalg.qr(rng.normal(size=(j, j)))[0] * 0.97
+                      for _ in range(P_)])
+        G = 0.3 * rng.normal(size=(P_, j, j)) + 0.5 * np.eye(j)
+        X = 0.3 * np.cumsum(rng.normal(size=(P_, LL_TRIALS, T_FIT + 1, d)),
+                            axis=2)
+        as_t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+        F_ = as_t(A)[:, None].expand(P_, T_FIT, j, j).contiguous()
+        G_ = as_t(G)
+        Q_ = (G_ @ mT(G_))[:, None].expand(P_, T_FIT, j, j).contiguous()
+        return F_, Q_, as_t(X)
+    kind, base, k = SCOPE_LL[jd]
+    noise = "sigma" if base.startswith("Relative") else "sigma_target"
+    make = (delayed(base, k) if kind == "delay"
+            else lambda **kw: getattr(models, base)(dim=k, **kw))
+    # one simulation for every set: the sets differ in their parameters
+    x = make(T=T_FIT, device=dev).simulate(g, n=LL_TRIALS)[..., :d]
+    sets = make(T=T_FIT, device=dev, **{
+        noise: torch.tensor([3.0 + 5.0 * c for c in range(CONDITIONS)]
+                            * CHAINS, device=dev),
+        "action_cost": torch.tensor([0.25 * (1 + c) for c in range(CHAINS)
+                                     for _ in range(CONDITIONS)],
+                                    device=dev)})
+    joint = sets._joint()
+    F_, Q_ = (torch.movedim(M_, 0, 1).contiguous()
+              for M_ in (joint.F, joint.G @ mT(joint.G)))
+    require(F_.shape[-1] == j, f"(j, d) = {jd}: joint dim {F_.shape[-1]}")
+    return F_, Q_, x.expand((P_,) + x.shape).contiguous()
+
+
+def ptxas_table(reports):
+    """{kernel<template arguments>: (registers, spill stores B, spill loads
+    B)} of the ``-Xptxas -v`` reports."""
+    out = {}
+    for report in reports.values():
+        for row in ptxas_summary(report):
+            hit = re.match(r"(.*): (\d+) registers, stack \d+ B, spill stores "
+                           r"(\d+) B, loads (\d+) B", row)
+            if hit:
+                out[hit.group(1)] = tuple(int(v) for v in hit.groups()[1:])
+    return out
+
+
+def one_ms(fn):
+    """(result, ms) of one call of ``fn``, from CUDA events: for the plain
+    versions, whose one call is the comparison and the time at once."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def scope_instances(dev, card, reports):
+    """Phase 20, the kernels: K1 (both designs, with the stores) and K2 at
+    every gains instance of the delay wrapper and the envelopes
+    (SCOPE_GAINS) and at two padded shapes, 24 specs at T=1008; K3 (both
+    variants) and K4 at the instances at j = 12 (SCOPE_LL) and two padded
+    shapes, 24 sets x 20 trials at T=1008; each against its plain version
+    at the true shape (K2's in float64 on the same float32 stores and
+    cotangents), K1's designs the same bits, two K2 and two K4 launches the
+    same bits; each timed beside its bound at the true shape's work
+    (padding shows as lost time), with its registers and spills.  Returns
+    {kernel: {shape: row}}."""
+    from lqg_tpu_torch.ops.kernels import gains as kg
+    from lqg_tpu_torch.ops.kernels import likelihood as kl
+
+    regs = ptxas_table(reports)
+    g = torch.Generator(device=dev).manual_seed(20)
+    out = {k: {} for k in ("gains_fwd_block", "gains_bwd", "ll_fwd",
+                           "ll_bwd")}
+    B, T_ = CHAINS * CONDITIONS, T_FIT
+    for nmp in SCOPE_GAINS:
+        t_shape = time.perf_counter()
+        n, m, p = nmp
+        N, _, _ = kg.instance_for(*nmp)
+        sp, ins = scope_gains_inputs(nmp, B, T_, dev)
+        th = kg.gains_fwd(*ins, T_, stores=True, design="thread")
+        bl = kg.gains_fwd(*ins, T_, stores=True, design="block")
+        ref, plain1 = one_ms(lambda: kg.fused_gains_reference(
+            sp, ins[-1], T_, stores=True))
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(th, bl)),
+                f"K1 {nmp}: block vs thread design differ")
+        e1 = max(float((a - b).abs().max()) for a, b in zip(bl[:3], ref[:3]))
+        st_err = max(float((a - b).abs().max())
+                     for a, b in zip(bl[3:], ref[3:]))
+        require(all(bool(torch.isfinite(a).all()) for a in bl)
+                and all(within(a, b, 0.0, ZOO_GAINS_ATOL)
+                        for a, b in zip(bl[:3], ref[:3]))
+                and all(within(a, b, K2_RTOL, K2_ATOL)
+                        for a, b in zip(bl[3:], ref[3:])),
+                f"K1 {nmp} vs plain: {e1}, stores {st_err}")
+        cots = [0.3 * torch.randn(x.shape, generator=g, device=dev)
+                for x in bl[:3]]
+        A_, Bm_, _, R_, _, F_, VV_, WW_, _ = ins
+        args = (A_, Bm_, R_, F_, VV_, WW_, *bl[3:], *cots)
+        got = kg.fused_gains_vjp(*args)
+        again = kg.fused_gains_vjp(*args)
+        want32, plain2 = one_ms(lambda: kg.fused_gains_vjp_reference(*args))
+        # K2 is held to the plain version in float64 on the same float32
+        # stores and cotangents: at n = 8 the float32 plain version's sums
+        # round about as far from float64 as the kernel's, and can lie on
+        # the other side, so that the two float32 results end further apart
+        # than K2_SCALE while each is within it of float64; the log prints
+        # the kernel's distance to both
+        want = kg.fused_gains_vjp_reference(*(x.double() for x in args))
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"K2 {nmp}: two launches differ")
+        e2 = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        scaled = max(float((a - b).abs().max() / b.abs().max())
+                     for a, b in zip(got, want))
+        scaled32 = max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(got, want32))
+        require(all(bool(torch.isfinite(a).all()) for a in got)
+                and all(within(a.double(), b, K2_RTOL,
+                               K2_ATOL + K2_SCALE * float(b.abs().max()))
+                        for a, b in zip(got, want)),
+                f"K2 {nmp} vs plain in float64: {e2}, max err / max|plain| "
+                f"{scaled}")
+        k1_ms = cuda_ms(lambda: kg.gains_fwd(*ins, T_, stores=True))
+        k1_free = cuda_ms(lambda: kg.gains_fwd(*ins, T_))
+        k2_ms = cuda_ms(lambda: kg.fused_gains_vjp(*args))
+        inst = kg.instance_for(*nmp)
+        st_bytes = 2 * T_ * B * n * n * 4
+        w1 = gains_work(B, n, m, p, T_)
+        b1 = bound((w1[0] + st_bytes, w1[1]))
+        b2 = bound(gains_bwd_work(B, n, m, p, T_))
+        shape = f"{nmp} B={B} T={T_}" + (f" padded to {inst}" if N != n
+                                          else "")
+        design = kg.design_for(*nmp, B, True)
+        r1 = regs.get(f"gains_fwd_block<{N}, {m}, {p}, 1, 0, 0>")
+        r2 = regs.get(f"gains_bwd<{N}, {m}, {p}>")
+        out["gains_fwd_block"][shape] = {
+            "ms": k1_ms, "ms_store_free": k1_free, "bound_ms": b1[0],
+            "bound_by": b1[1], "max_abs_err": e1, "plain_ms": plain1,
+            "design": design, "registers_spills": r1}
+        out["gains_bwd"][shape] = {
+            "ms": k2_ms, "bound_ms": b2[0], "bound_by": b2[1],
+            "max_abs_err": e2, "plain_ms": plain2, "registers_spills": r2}
+        log(f"[{card}] K1 {shape} ({design} design, with the stores): "
+            f"{k1_ms:.4f} ms, store-free {k1_free:.4f} ms (bound "
+            f"{b1[0]:.6f}, {b1[1]}, at the true shape's work), thread and "
+            f"block designs the same bits, max abs err vs plain {e1:.3e} "
+            f"(atol {ZOO_GAINS_ATOL}), stores {st_err:.3e}; K2 {k2_ms:.4f} "
+            f"ms (bound {b2[0]:.6f}, {b2[1]}), two launches the same bits, "
+            f"vs the plain version in float64 max abs err {e2:.3e}, max err "
+            f"/ max|plain| {scaled:.3e} (vs the float32 plain version "
+            f"{scaled32:.3e}); plain "
+            f"K1 / K2 {plain1:.2f} / {plain2:.2f} ms; registers, spill "
+            f"stores B, loads B: K1 {r1}, K2 {r2}; "
+            f"{time.perf_counter() - t_shape:.1f} s")
+        del th, bl, ref, got, again, want, want32, args, ins, sp
+        torch.cuda.empty_cache()
+
+    P_ = CHAINS * CONDITIONS
+    for jd in SCOPE_LL:
+        t_shape = time.perf_counter()
+        j, d = jd
+        J, _ = kl.instance_for(*jd)
+        F_, Q_, X = scope_ll_inputs(jd, dev, g)
+        free = kl.ll_fwd(F_, Q_, X)
+        ll, *st = kl.ll_fwd(F_, Q_, X, stores=True)
+        (ref, *st_ref), plain3 = one_ms(
+            lambda: kl.conditioned_log_likelihood_reference(F_, Q_, X,
+                                                            stores=True))
+        torch.cuda.synchronize()
+        e3 = float((ll - ref).abs().max())
+        st_share = [float(((a - b).abs() / (
+            LL_ATOL + LL_RTOL * b.abs() + K3_STORE_SCALE * row_scale(b)))
+            .max()) for a, b in zip(st, st_ref)]
+        require(bool(torch.isfinite(ll).all()) and torch.equal(free, ll)
+                and within(ll, ref, LL_RTOL, LL_ATOL)
+                and max(st_share) <= 1.0,
+                f"K3 {jd} vs plain: {e3}, shares of the stores' allowed "
+                f"error {st_share}")
+        w = torch.randn(ll.shape, generator=g, device=dev)
+        args = (F_, X, w, *st)
+        got = kl.conditioned_log_likelihood_vjp(*args)
+        again = kl.conditioned_log_likelihood_vjp(*args)
+        want, plain4 = one_ms(
+            lambda: kl.conditioned_log_likelihood_vjp_reference(*args))
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"K4 {jd}: two launches differ")
+        e4 = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        require(all(bool(torch.isfinite(a).all()) for a in got)
+                and all(within(a, b, K4_RTOL,
+                               atol + K2_SCALE * float(b.abs().max()))
+                        for a, b, atol in zip(got, want, (K4_FQ_ATOL,
+                                                          K4_FQ_ATOL,
+                                                          K4_X_ATOL))),
+                f"K4 {jd} vs plain: {e4}")
+        k3_ms = cuda_ms(lambda: kl.ll_fwd(F_, Q_, X))
+        k3_st_ms = cuda_ms(lambda: kl.ll_fwd(F_, Q_, X, stores=True))
+        k4_ms = cuda_ms(lambda: kl.conditioned_log_likelihood_vjp(*args))
+        b3 = bound(ll_work(P_, LL_TRIALS, j, d, T_FIT))
+        b4 = bound(ll_bwd_work(P_, LL_TRIALS, j, d, T_FIT))
+        shape = (f"{jd} P={P_} n={LL_TRIALS} T={T_FIT}"
+                 + (f" padded to {(J, d)}" if J != j else ""))
+        r3 = regs.get(f"ll_fwd<{J}, {d}, 0>")
+        r4 = regs.get(f"ll_bwd<{J}, {d}>")
+        out["ll_fwd"][shape] = {
+            "ms": k3_ms, "ms_stores": k3_st_ms, "bound_ms": b3[0],
+            "bound_by": b3[1], "max_abs_err": e3, "plain_ms": plain3,
+            "registers_spills": r3}
+        out["ll_bwd"][shape] = {
+            "ms": k4_ms, "bound_ms": b4[0], "bound_by": b4[1],
+            "max_abs_err": e4, "plain_ms": plain4, "registers_spills": r4}
+        log(f"[{card}] K3 {shape}: {k3_ms:.4f} ms (bound {b3[0]:.5f}, "
+            f"{b3[1]}, at the true shape's work), with the stores "
+            f"{k3_st_ms:.4f} ms, max abs err vs plain {e3:.3e}, max rel err "
+            f"{float(((ll - ref) / ref).abs().max()):.3e} (rtol {LL_RTOL}, "
+            f"atol {LL_ATOL}), stores' largest share of the allowed error "
+            f"{st_share[0]:.3f} / {st_share[1]:.3f}; K4 {k4_ms:.4f} ms "
+            f"(bound {b4[0]:.5f}, {b4[1]}), two launches the same bits, max "
+            f"abs err {e4:.3e}; plain K3 / K4 (one call each, with the "
+            f"stores) {plain3:.2f} / {plain4:.2f} ms; registers, spill "
+            f"stores B, loads B: K3 {r3}, K4 {r4}; "
+            f"{time.perf_counter() - t_shape:.1f} s")
+        del F_, Q_, X, st, st_ref, got, again, want, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def scope_paths(dev, card, all_counters, all_names):
+    """Phase 20, the paths: the gradient path of each of SCOPE_PATHS, 4
+    chains x 6 conditions x 20 trials at T=1008, through
+    ``shared_params_lqg_model`` (``System.gains`` and
+    ``System.log_likelihood(method="auto")`` with autograd): one eager
+    value+grad with every launch counter and a counter on the scans
+    (``riccati.backward``, ``kalman.forward``) zeroed just before and read
+    just after, each kernel of the path once and no scan; against eager
+    float64 on the card; the value+grad replayed from a CUDA graph against
+    eager; the replay and eager times beside the eager time of the scan
+    route (``method="scan"``: ``gains_method="scan"`` too), what ``auto``
+    took at these shapes before K1-K4 covered them.  Returns {path:
+    readings}."""
+    from lqg_tpu_torch.infer import shared_params_lqg_model
+    from lqg_tpu_torch.infer.capture import (GraphedValueAndGrad,
+                                             eager_value_and_grad)
+    from lqg_tpu_torch.ops import kalman, riccati
+
+    scans = {"calls": 0}
+
+    def counting(fn):
+        def wrapped(*args, **kw):
+            scans["calls"] += 1
+            return fn(*args, **kw)
+        return wrapped
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    readings = {}
+    for name, (base, delay, per_cond, shared, kernels, nmp,
+               jd) in SCOPE_PATHS.items():
+        t_path = time.perf_counter()
+        cls = delayed(base, delay)
+        x_fit = torch.stack([cls(T=T_FIT, device=dev,
+                                 **{per_cond: 3.0 + 5.0 * c}).simulate(
+            g, n=LL_TRIALS)[..., :2] for c in range(CONDITIONS)])
+        pm = shared_params_lqg_model(x_fit, cls, shared_params=shared)
+        u0 = pm.init_unconstrained()
+        u = u0 + 0.1 * torch.randn((CHAINS,) + u0.shape, generator=g,
+                                   device=dev)
+        eager = eager_value_and_grad(pm.potential)
+        eager(u)  # the first call fills the models' caches
+        saved = (riccati.backward, kalman.forward)
+        riccati.backward, kalman.forward = (counting(f) for f in saved)
+        try:
+            for fn in all_counters:
+                fn.launches = 0
+            scans["calls"] = 0
+            torch.cuda.synchronize()
+            pot, grad = eager(u)
+            torch.cuda.synchronize()
+            counts = {k: fn.launches for k, fn in zip(all_names,
+                                                       all_counters)}
+            scan_calls = scans["calls"]
+        finally:
+            riccati.backward, kalman.forward = saved
+        want = {k: int(k in kernels) for k in all_names}
+        log(f"scope path {name}: {CHAINS} chains x {CONDITIONS} conditions x "
+            f"{LL_TRIALS} trials at T={T_FIT}, D={u.shape[-1]}; one eager "
+            f"value+grad launches {counts} (K1/K2 at {nmp}, the likelihood "
+            f"at {jd}), scan calls {scan_calls}")
+        require(counts == want and scan_calls == 0,
+                f"scope path {name}: launches {counts}, scans {scan_calls}, "
+                f"expected {want} and none")
+        require(pot.shape == (CHAINS,) and grad.shape == u.shape
+                and bool(torch.isfinite(pot).all()
+                         and torch.isfinite(grad).all()),
+                f"scope path {name}: shapes or values")
+        pm64 = shared_params_lqg_model(x_fit.double(), cls,
+                                       shared_params=shared)
+        pot64, grad64 = eager_value_and_grad(pm64.potential)(u.double())
+        del pm64
+        pot_err = float(((pot.double() - pot64) / pot64).abs().max())
+        grad_rel = float(((grad.double() - grad64).abs()
+                          / grad64.abs()).max())
+        log(f"scope path {name} vs eager float64 on the card: value rel err "
+            f"{pot_err:.3e} (rtol {POT_RTOL}) of |U| ~ "
+            f"{float(pot64.abs().mean()):.1f}; gradient rel err max "
+            f"{grad_rel:.3e} (rtol {POT_GRAD_RTOL})")
+        require(within(pot.double(), pot64, POT_RTOL, 0.0),
+                f"scope path {name}, value vs float64: {pot_err}")
+        require(within(grad.double(), grad64, POT_GRAD_RTOL, 0.0),
+                f"scope path {name}, gradient vs float64: {grad_rel}")
+        graphed = GraphedValueAndGrad(pm.potential, u)
+        pe_g, grad_g = graphed(u)
+        pe_e, grad_e = eager(u)
+        torch.cuda.synchronize()
+        require(within(pe_g, pe_e, POT_RTOL, 0.0)
+                and within(grad_g, grad_e, POT_GRAD_RTOL,
+                           1e-6 * float(grad_e.abs().max())),
+                f"scope path {name}: replay vs eager")
+        replay = cuda_ms(lambda: graphed(u))
+        eager_ms = host_ms(lambda: eager(u), 3)
+        del graphed
+        # the scan route, what auto took here before (float64 runs it too)
+        pm.method = "scan"
+        scan_eager = eager_value_and_grad(pm.potential)
+        scan_eager_ms = host_ms(lambda: scan_eager(u), 1)
+        pm.method = "auto"
+        readings[name] = {
+            "launches": counts, "scan_calls": scan_calls, "gains": str(nmp),
+            "likelihood": str(jd), "value_rel_err": pot_err,
+            "grad_rel_err": grad_rel, "replay_ms": replay,
+            "eager_ms": eager_ms, "scan_eager_ms": scan_eager_ms,
+            "seconds": time.perf_counter() - t_path}
+        log(f"[{card}] scope path {name}: value+grad replay {replay:.4f} ms "
+            f"(CUDA events), eager {eager_ms:.1f} ms (host clock, median of "
+            f"3); the scan route (method='scan', gains_method='scan') eager "
+            f"{scan_eager_ms:.1f} ms (host clock, one call): "
+            f"{scan_eager_ms / eager_ms:.1f} x the kernels' eager, "
+            f"{scan_eager_ms / replay:.0f} x their replay; "
+            f"{readings[name]['seconds']:.1f} s")
+        del pm, eager, scan_eager, pot, grad, pot64, grad64
+        torch.cuda.empty_cache()
+    return readings
 
 
 def fit_batches(dev, card, x_fit):
@@ -2999,14 +3478,8 @@ def main() -> int:
     def delay_path():
         dmodel.log_likelihood(dmodel.simulate(g, n=LL_TRIALS)[..., :2])
 
-    warm = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        delay_path()
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
-    log(f"forward delay path warm, host clock: median "
-        f"{statistics.median(warm):.4f} s of {[round(w, 4) for w in warm]}")
+    log(f"forward delay path warm, host clock: "
+        f"{host_ms(delay_path, 1) / 1e3:.4f} s (one call)")
     wall, busy, n_events, named = profile_ms(delay_path, ("ll_blocked_fwd",))
     if n_events:
         log(f"forward delay path under torch.profiler: wall {wall:.1f} ms, "
@@ -3080,14 +3553,8 @@ def main() -> int:
     log("gradient delay path: one value+grad under set_sync_debug_mode("
         "'error'): no copy from host memory, no host synchronization")
 
-    warm = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        delay_grad_path()
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
-    log(f"gradient delay path warm, host clock: median "
-        f"{statistics.median(warm):.4f} s of {[round(w, 4) for w in warm]}")
+    log(f"gradient delay path warm, host clock: "
+        f"{host_ms(delay_grad_path, 1) / 1e3:.4f} s (one call)")
     wall, busy, n_events, named = profile_ms(
         delay_grad_path, ("ll_blocked_fwd", "ll_blocked_bwd"))
     if n_events:
@@ -3193,7 +3660,8 @@ def main() -> int:
     k3_ms = cuda_ms(lambda: ll_fwd(F, Q, X))
     k3_stores_ms = cuda_ms(lambda: ll_fwd(F, Q, X, stores=True))
     k3_plain = cuda_ms(
-        lambda: conditioned_log_likelihood_reference(F, Q, X), launches=3)
+        lambda: conditioned_log_likelihood_reference(F, Q, X), runs=1,
+        launches=1)
     k1_bound, k1_by = bound(gains_work(B, 2, 1, 2))
     k3_bound, k3_by = bound(ll_work(LL_SETS, LL_TRIALS, 4, 2, T))
     k3_st_bound, k3_st_by = bound(ll_work(LL_SETS, LL_TRIALS, 4, 2, T,
@@ -3208,11 +3676,11 @@ def main() -> int:
     k2_device = [kernel_device_ms(
         lambda: [fused_gains_vjp(*a) for _ in range(20)], "gains_bwd")
         for a in (k2_inputs, k2_large)]
-    k2_plain = cuda_ms(lambda: fused_gains_vjp_reference(*k2_inputs), runs=3,
+    k2_plain = cuda_ms(lambda: fused_gains_vjp_reference(*k2_inputs), runs=1,
                        launches=1)
     k4_ms = cuda_ms(lambda: conditioned_log_likelihood_vjp(*k4_args))
     k4_plain = cuda_ms(
-        lambda: conditioned_log_likelihood_vjp_reference(*k4_args), runs=3,
+        lambda: conditioned_log_likelihood_vjp_reference(*k4_args), runs=1,
         launches=1)
     k2_bound, k2_by = bound(gains_bwd_work(CHAINS * CONDITIONS, 2, 1, 2,
                                            T_FIT))
@@ -3226,10 +3694,10 @@ def main() -> int:
                            runs=5, launches=5)
     k5_plain = cuda_ms(
         lambda: conditioned_log_likelihood_blocked_reference(F5, Q5, X5),
-        runs=3, launches=1)
+        runs=1, launches=1)
     k6_plain = cuda_ms(
         lambda: conditioned_log_likelihood_blocked_vjp_reference(*k6_args),
-        runs=3, launches=1)
+        runs=1, launches=1)
     k5_work = ll_blocked_work(P5, LL_TRIALS, J5, 2, T_FIT)
     k6_work = ll_blocked_bwd_work(P5, LL_TRIALS, J5, 2, T_FIT)
     k5_bound, k5_by = bound(k5_work)
@@ -3461,7 +3929,8 @@ def main() -> int:
     t0 = time.perf_counter()
     k1_bits += k1_designs_bits(dev, card, K1_INSTANCES[3:])
     mhz = sm_clock_mhz()
-    k1_cross = k1_crossover(dev, card)
+    k1_cross = k1_crossover(dev, card,
+                            instances=K1_INSTANCES + K1_SCOPE_SWEEP)
     k1_rows = k1_times(dev, card, mhz)
     log(f"K1 designs (bits, crossover, times): "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3596,6 +4065,34 @@ def main() -> int:
                 entry["parallel_launches"] = {
                     path: n[counter] for path, n in par_launches.items()}
     log(f"parallel layer (phase 19): {json.dumps(par_readings)}")
+    # 20. K1-K4 over lqg_tpu's whole kernel scope: the delay wrapper's
+    # instances, the envelopes and the padded route, and the delay models'
+    # gradient paths through the entry points
+    t0 = time.perf_counter()
+    scope_rows = scope_instances(dev, card, reports)
+    scope_readings = scope_paths(dev, card, all_counters, all_names)
+    on_path = {}  # (kernel, instance) -> launches a value+grad
+    for r in scope_readings.values():
+        for k, v in r["launches"].items():
+            shape = r["gains"] if k.startswith("gains") else r["likelihood"]
+            on_path[(k, shape)] = on_path.get((k, shape), 0) + v
+    by_counter = {"gains_fwd_block": "gains_fwd"}
+    for entry in kernels:
+        if entry["name"] == "gains_fwd":  # the paths take the block design
+            continue
+        rows = scope_rows.get(entry["name"])
+        if rows:
+            counter = by_counter.get(entry["name"], entry["name"])
+            for shape, row in rows.items():
+                row["launches_on_scope_paths"] = on_path.get(
+                    (counter, shape.split(" B=")[0].split(" P=")[0]), 0)
+            entry["scope_shapes"] = rows
+        entry["scope_path_launches"] = {
+            path: r["launches"].get(by_counter.get(entry["name"],
+                                                   entry["name"]), 0)
+            for path, r in scope_readings.items()}
+    log(f"scope paths (phase 20): {json.dumps(scope_readings)}")
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s")
     log(f"zoo launches (phase 15): {json.dumps(zoo_launches)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -425,7 +425,11 @@ __device__ __forceinline__ void kalman_spread(
 //   (4, 1, 3) 0.3486 0.2998 0.3440 0.3068  0.5808
 //   (5, 1, 2) 0.3944 0.4264 0.3957 0.3704  0.7934
 //   (4, 2, 2) 0.3861 0.3830 0.2993 0.3139  0.6256
-// At n = 2 a step is shorter than the exchanges spreading it costs.
+// At n = 2 a step is shorter than the exchanges spreading it costs.  The
+// instances added for the delay wrapper and for the padded route, (4, 1,
+// 1-2), (6, 1, 1-2) and n = 8, take one lane for both warps: beyond n^2 = 32
+// entries the spread layout has no lane for each, and the one-lane layout
+// is the thread design's step as it is.
 template <int N, int M, int P>
 struct BlockLayout {
   static constexpr bool riccati = false, kalman = false;
@@ -519,7 +523,9 @@ __global__ void __launch_bounds__(64)
 // cancellation at long horizons.
 //
 // The block walks T in chunks of kChunk = 32 steps, one lane a step, through
-// a ring of kSlots chunk slots in shared memory, with five warps in roles:
+// a ring of chunk slots in shared memory (BwdSlot::slots: four where they
+// fit a block's shared memory, else two; the records grow as n^2, and four
+// slots at n = 8 would take 321-399 KB), with five warps in roles:
 // - warp 0 copies a chunk's inputs into its slot with 4-byte cp.async (rows
 //   are strided by batch x size in the (T, B, ., .) layout) that arrive on
 //   the slot's mbarrier: S_t, Lbar_t, Hbar_t at ascending slots, P_t, Kbar_t
@@ -536,8 +542,8 @@ __global__ void __launch_bounds__(64)
 //   pipeline.cuh (a fixed xor tree), 32 values a round (nR + nK values:
 //   27 at (2, 1, 2), 120 at (5, 1, 2)), and adds the chunk sums to running
 //   totals in chunk order: no atomics, the same bits on every launch.
-// The copy warp runs up to three chunks ahead of the accumulate warp, the
-// recompute warp with it; mbarriers hand each slot from role to role
+// The copy warp runs up to slots - 1 chunks ahead of the accumulate warp,
+// the recompute warp with it; mbarriers hand each slot from role to role
 // (filled, coefficients ready, carried, free).  Any T works: the last chunk
 // is masked.
 //
@@ -549,15 +555,16 @@ __global__ void __launch_bounds__(64)
 // recompute and the sums run beside the chains, a chunk apart.  Splitting
 // a step over lanes would cost more shuffle rounds than the step takes.
 constexpr int kChunk = 32;  // steps a chunk: one lane a step
-constexpr int kSlots = 4;   // chunk slots of the ring
+constexpr int kMaxSlots = 4;  // chunk slots of the ring, at most
 constexpr int kBwdThreads = 160;  // copy, two carry, recompute, sum warps
 constexpr int kBwdBarBytes = 128;  // room for 16 mbarriers
+constexpr size_t kSmemLimit = 232448;  // 227 KB, a block's most
 
-// mbarriers, kSlots of each
-constexpr int kLoaded = 0;            // copy warp -> slot filled (32 arrivals)
-constexpr int kReady = kSlots;        // recompute warp -> coefficients (32)
-constexpr int kCarried = 2 * kSlots;  // carry lanes -> their outputs (2)
-constexpr int kFree = 3 * kSlots;     // accumulate warp -> slot released (32)
+// mbarriers, one of each for every slot (up to kMaxSlots)
+constexpr int kLoaded = 0;               // copy warp -> slot filled (32)
+constexpr int kReady = kMaxSlots;        // recompute warp -> coefficients (32)
+constexpr int kCarried = 2 * kMaxSlots;  // carry lanes -> their outputs (2)
+constexpr int kFree = 3 * kMaxSlots;     // accumulate warp -> released (32)
 
 constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 
@@ -597,8 +604,15 @@ struct BwdSlot {
   static constexpr int vW = 0, vF = P * P, vV = vF + P * N,
                        vAK = vV + N * N, nK = vAK + N * N;
   static constexpr int roundsR = (nR + 31) / 32, roundsK = (nK + 31) / 32;
-  static constexpr size_t bytes =
-      kBwdBarBytes + sizeof(float) * ((size_t)kSlots * floats + nR + nK);
+  static constexpr size_t bytes_at(int slots) {
+    return kBwdBarBytes + sizeof(float) * ((size_t)slots * floats + nR + nK);
+  }
+  // the ring's slots: the most that fit a block (the sums' order does not
+  // depend on them)
+  static constexpr int slots = bytes_at(kMaxSlots) <= kSmemLimit ? kMaxSlots
+                                                                 : 2;
+  static constexpr size_t bytes = bytes_at(slots);
+  static_assert(bytes <= kSmemLimit, "K2's ring does not fit a block");
 };
 
 template <int S>
@@ -647,7 +661,7 @@ __device__ __forceinline__ void bwd_copy(float* ring, uint64_t* bar,
                                          int lane) {
   using L = BwdSlot<N, M, P>;
   for (int c = 0; c < NC; ++c) {
-    const int s = c % kSlots, u = c / kSlots;
+    const int s = c % L::slots, u = c / L::slots;
     if (u > 0) mbar_wait(bar + kFree + s, (u - 1) & 1);
     float* slot = ring + s * L::floats;
     const int i0 = c * kChunk, len = min(kChunk, T - i0);
@@ -685,8 +699,8 @@ __device__ __forceinline__ void bwd_recompute(
   transpose<N, M>(Bm, Bt);
   transpose<P, N>(F, Ft);
   for (int c = 0; c < NC; ++c) {
-    const int s = c % kSlots;
-    mbar_wait(bar + kLoaded + s, (c / kSlots) & 1);
+    const int s = c % L::slots;
+    mbar_wait(bar + kLoaded + s, (c / L::slots) & 1);
     float* slot = ring + s * L::floats;
     // Riccati: SB, SA, H, G, Hinv, L, HL, G^T Hinv from S
     float S[N * N];
@@ -760,8 +774,8 @@ __device__ __forceinline__ void bwd_riccati(float* ring, uint64_t* bar,
   float Sb[N * N];
   fill<N * N>(Sb, 0.0f);
   for (int c = 0; c < NC; ++c) {
-    const int s = c % kSlots;
-    mbar_wait(bar + kReady + s, (c / kSlots) & 1);
+    const int s = c % L::slots;
+    mbar_wait(bar + kReady + s, (c / L::slots) & 1);
     const float* rc = ring + s * L::floats + L::aRC;
     float* ro = ring + s * L::floats + L::aRO;
     const int len = min(kChunk, T - c * kChunk);
@@ -853,8 +867,8 @@ __device__ __forceinline__ void bwd_kalman(float* ring, uint64_t* bar,
   float Pb[N * N];
   fill<N * N>(Pb, 0.0f);
   for (int c = 0; c < NC; ++c) {
-    const int s = c % kSlots;
-    mbar_wait(bar + kReady + s, (c / kSlots) & 1);
+    const int s = c % L::slots;
+    mbar_wait(bar + kReady + s, (c / L::slots) & 1);
     const float* kc = ring + s * L::floats + L::aKC;
     float* ko = ring + s * L::floats + L::aKO;
     const int len = min(kChunk, T - c * kChunk);
@@ -946,7 +960,7 @@ __device__ __forceinline__ void bwd_accumulate(
   fill<RR>(totR, 0.0f);
   fill<RK>(totK, 0.0f);
   for (int c = 0; c < NC; ++c) {
-    const int s = c % kSlots, u = c / kSlots;
+    const int s = c % L::slots, u = c / L::slots;
     mbar_wait(bar + kReady + s, u & 1);
     mbar_wait(bar + kCarried + s, u & 1);
     const float* slot = ring + s * L::floats;
@@ -1024,7 +1038,7 @@ __device__ __forceinline__ void bwd_accumulate(
     add_rounds<RK>(vK, totK, lane);
   }
   // the totals meet in shared memory: the Riccati ones, then the Kalman ones
-  float* sums = ring + kSlots * L::floats;
+  float* sums = ring + L::slots * L::floats;
 #pragma unroll
   for (int r = 0; r < RR; ++r)
     if (32 * r + lane < L::nR) sums[32 * r + lane] = totR[r];
@@ -1068,7 +1082,7 @@ __global__ void __launch_bounds__(kBwdThreads)
   float* ring = reinterpret_cast<float*>(smem + kBwdBarBytes);
   const int b = blockIdx.x, NC = (T + kChunk - 1) / kChunk;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kSlots; ++s) {
+    for (int s = 0; s < BwdSlot<N, M, P>::slots; ++s) {
       mbar_init(bar + kLoaded + s, 32);
       mbar_init(bar + kReady + s, 32);
       mbar_init(bar + kCarried + s, 2);
@@ -1151,8 +1165,16 @@ int launch_bwd(const float* A, const float* B, const float* R, const float* F,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiated (n, m, p): calls fn with Dims<n, m, p>, or returns
-// cudaErrorInvalidValue (lqg_tpu_torch/ops/kernels/gains.py:INSTANCES).
+// The instantiated (n, m, p) of this library: calls fn with Dims<n, m, p>,
+// or returns cudaErrorInvalidValue.  The source is built once per part
+// (-DLQG_PART=k), each part a library of its own, so that the parts compile
+// in parallel; part k holds the instances that
+// lqg_tpu_torch/ops/kernels/gains.py:PART maps to k.  Part 0 is the zoo's
+// six; parts 1-4 the delay wrapper's (4, 6, 8 states at m = 1, p = 1-2) and
+// the envelopes at n = 8 that the rest of the scope is padded onto.
+#ifndef LQG_PART
+#define LQG_PART 0
+#endif
 template <int N_, int M_, int P_>
 struct Dims {
   static constexpr int N = N_, M = M_, P = P_;
@@ -1160,12 +1182,30 @@ struct Dims {
 
 template <class Fn>
 int dispatch(int n, int m, int p, Fn&& fn) {
+#if LQG_PART == 0
   if (n == 2 && m == 1 && p == 2) return fn(Dims<2, 1, 2>{});
   if (n == 2 && m == 1 && p == 1) return fn(Dims<2, 1, 1>{});
   if (n == 3 && m == 1 && p == 2) return fn(Dims<3, 1, 2>{});
   if (n == 4 && m == 1 && p == 3) return fn(Dims<4, 1, 3>{});
   if (n == 5 && m == 1 && p == 2) return fn(Dims<5, 1, 2>{});
   if (n == 4 && m == 2 && p == 2) return fn(Dims<4, 2, 2>{});
+#elif LQG_PART == 1
+  if (n == 4 && m == 1 && p == 2) return fn(Dims<4, 1, 2>{});
+  if (n == 4 && m == 1 && p == 1) return fn(Dims<4, 1, 1>{});
+  if (n == 6 && m == 1 && p == 2) return fn(Dims<6, 1, 2>{});
+  if (n == 6 && m == 1 && p == 1) return fn(Dims<6, 1, 1>{});
+#elif LQG_PART == 2
+  if (n == 8 && m == 1 && p == 2) return fn(Dims<8, 1, 2>{});
+  if (n == 8 && m == 1 && p == 1) return fn(Dims<8, 1, 1>{});
+#elif LQG_PART == 3
+  if (n == 8 && m == 1 && p == 3) return fn(Dims<8, 1, 3>{});
+  if (n == 8 && m == 2 && p == 1) return fn(Dims<8, 2, 1>{});
+#elif LQG_PART == 4
+  if (n == 8 && m == 2 && p == 2) return fn(Dims<8, 2, 2>{});
+  if (n == 8 && m == 2 && p == 3) return fn(Dims<8, 2, 3>{});
+#else
+#error "gains.cu has parts 0-4"
+#endif
   return cudaErrorInvalidValue;
 }
 
@@ -1234,7 +1274,14 @@ extern "C" int lqg_gains_fwd_layout(const float* A, const float* B,
   return dispatch(n, m, p, [&](auto d) {
     using D = decltype(d);
     const int which = 2 * (spread_riccati != 0) + (spread_kalman != 0);
-    if (which == 0)
+    // the spread layouts need a lane for each of the carry's n^2 entries
+    if constexpr (D::N * D::N > 32) {
+      if (which != 0) return static_cast<int>(cudaErrorInvalidValue);
+      launch_fwd_block<D::N, D::M, D::P, false, false>(
+          A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st, batch, T,
+          eps, s);
+      return static_cast<int>(cudaGetLastError());
+    } else if (which == 0)
       launch_fwd_block<D::N, D::M, D::P, false, false>(
           A, B, Q, R, Qf, F, VV, WW, Sigma0, L, H, K, S_st, P_st, batch, T,
           eps, s);

@@ -991,8 +991,16 @@ static bool launch_ok(int P, int n, int T, int nt, const float* state) {
          nt % 32 == 0 && (n <= nt || state != nullptr);
 }
 
-// The instantiated (j, d): calls fn with JD<j, d>, or returns
-// cudaErrorInvalidValue (lqg_tpu_torch/ops/kernels/likelihood.py:INSTANCES).
+// The instantiated (j, d) of this library: calls fn with JD<j, d>, or
+// returns cudaErrorInvalidValue.  The source is built once per part
+// (-DLQG_PART=k), each part a library of its own, so that the parts compile
+// in parallel; part k holds the instances that
+// lqg_tpu_torch/ops/kernels/likelihood.py:PART maps to k.  Part 0 is the
+// zoo's six; parts 1-2 are j = 12, the delay wrapper's (12, 2) and the
+// envelopes that the rest of the scope is padded onto.
+#ifndef LQG_PART
+#define LQG_PART 0
+#endif
 template <int J_, int D_>
 struct JD {
   static constexpr int J = J_, D = D_;
@@ -1000,12 +1008,22 @@ struct JD {
 
 template <class Fn>
 static int dispatch(int j, int d, Fn&& fn) {
+#if LQG_PART == 0
   if (j == 4 && d == 2) return fn(JD<4, 2>{});
   if (j == 5 && d == 2) return fn(JD<5, 2>{});
   if (j == 8 && d == 2) return fn(JD<8, 2>{});
   if (j == 8 && d == 4) return fn(JD<8, 4>{});
   if (j == 10 && d == 2) return fn(JD<10, 2>{});
   if (j == 10 && d == 4) return fn(JD<10, 4>{});
+#elif LQG_PART == 1
+  if (j == 12 && d == 2) return fn(JD<12, 2>{});
+  if (j == 12 && d == 1) return fn(JD<12, 1>{});
+#elif LQG_PART == 2
+  if (j == 12 && d == 3) return fn(JD<12, 3>{});
+  if (j == 12 && d == 4) return fn(JD<12, 4>{});
+#else
+#error "likelihood.cu has parts 0-2"
+#endif
   return cudaErrorInvalidValue;
 }
 

@@ -77,11 +77,24 @@ projection's adjoint to its Riccati carry.  At m = 1 the Hessian is a scalar, th
 part only rides along (``A^T S_a A``), and both keep the Pallas kernel's
 arithmetic.
 
+The scope is lqg_tpu's (``gains.py:621-630``): any stationary spec with n
+<= 8, m <= 2, p <= 3.  K1 and K2 are templates on (n, m, p), built at the
+instances of :data:`PART`: the zoo's, the delay wrapper's at delays 1-3,
+and at n = 8 an envelope for each (m, p).  Any other (n, m, p) in scope is
+padded with zeros in n onto the smallest instance with its (m, p)
+(:func:`instance_for`), and the wrappers slice the padded entries away.
+The padding is exact: A, Q, Qf, VV, Sigma0 and the columns of F are zero
+in the padded block, so S, P, the padded columns of L and the padded rows
+of K stay exactly zero; the m x m and p x p inverses never see it; and every
+extra term of a sum is a product with a zero, which leaves a finite sum's
+bits as they are.  The adjoint's carries stay in the real block the same
+way.
+
 The plain PyTorch versions :func:`fused_gains_reference` and
 :func:`fused_gains_vjp_reference` repeat the same arithmetic (same
 closed-form inverses, same ``eps``, same order of the additions, K2's sums
 over T in its chunk order, :func:`_chunk_sum`); the wrappers take them
-only for tensors on the CPU.
+only for tensors on the CPU, padded as the kernels would be.
 """
 
 from __future__ import annotations
@@ -89,6 +102,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as nnf
 from torch.autograd.function import once_differentiable
 
 from lqg_tpu_torch.spec import LQGSpec
@@ -98,14 +112,39 @@ from lqg_tpu_torch.ops.kernels import nvcc
 EPS = 1e-12  # added to every determinant before its reciprocal
 CHUNK = 32  # K2's steps a chunk, one lane a step (csrc/gains.cu: kChunk)
 
-# (n, m, p) instantiated in csrc/gains.cu: the dim=1 tracking models
-# (BoundedActor, OptimalActor: (2, 1, 2); RelativeObservation: (2, 1, 1);
-# the SubjectiveActor's 3-state internal model: (3, 1, 2)), PointMass
-# (4, 1, 3), Hand (5, 1, 2) and RelativeObservation(dim=2) (4, 2, 2): every
-# model of the zoo inside lqg_tpu's kernel scope (n <= 8, m <= 2, p <= 3,
-# lqg_tpu/ops/pallas/gains.py:621-630)
-INSTANCES = frozenset({(2, 1, 2), (2, 1, 1), (3, 1, 2), (4, 1, 3), (5, 1, 2),
-                       (4, 2, 2)})
+# The (n, m, p) instantiated in csrc/gains.cu, each with the part of the
+# source (nvcc.PARTS) whose library holds it.  Part 0, the zoo: the dim=1
+# tracking models (BoundedActor, OptimalActor: (2, 1, 2);
+# RelativeObservation: (2, 1, 1); the SubjectiveActor's 3-state internal
+# model: (3, 1, 2)), PointMass (4, 1, 3), Hand (5, 1, 2) and
+# RelativeObservation(dim=2) (4, 2, 2).  Parts 1-2, TemporalDelayModel at
+# delays k = 1-3 around the dim=1 models: 2 (k + 1) = 4, 6, 8 states, m = 1,
+# p = 2 (p = 1 around the relative-observation actor; the SubjectiveActor
+# at delay 1 is (6, 1, 2) too).  Parts 3-4, with (8, 1, 3) the point mass
+# at delay 1, the envelopes at n = 8 for the other (m, p) of the scope.
+PART = {(2, 1, 2): 0, (2, 1, 1): 0, (3, 1, 2): 0, (4, 1, 3): 0,
+        (5, 1, 2): 0, (4, 2, 2): 0,
+        (4, 1, 2): 1, (4, 1, 1): 1, (6, 1, 2): 1, (6, 1, 1): 1,
+        (8, 1, 2): 2, (8, 1, 1): 2, (8, 1, 3): 3, (8, 2, 1): 3,
+        (8, 2, 2): 4, (8, 2, 3): 4}
+INSTANCES = frozenset(PART)
+# lqg_tpu's kernel scope (lqg_tpu/ops/pallas/gains.py:621-630)
+MAX_N, MAX_M, MAX_P = 8, 2, 3
+
+
+def in_scope(n: int, m: int, p: int) -> bool:
+    return 1 <= n <= MAX_N and 1 <= m <= MAX_M and 1 <= p <= MAX_P
+
+
+def instance_for(n: int, m: int, p: int):
+    """The instance K1 and K2 launch for ``(n, m, p)``: itself where it is
+    instantiated, else the smallest instance with its (m, p) and more
+    states, onto which the inputs are padded with zeros; None outside the
+    scope."""
+    if not in_scope(n, m, p):
+        return None
+    return min(k for k in INSTANCES if k[1:] == (m, p) and k[0] >= n)
+
 
 DESIGNS = ("auto", "thread", "block")
 # The batch from which ``design="auto"`` takes K1's thread design, per
@@ -119,17 +158,35 @@ DESIGNS = ("auto", "thread", "block")
 # (each lane writes its carries to 32-byte sectors of its own): at (5, 1,
 # 2) the block design was the faster at every batch, 16,384 included (7.87
 # against 16.67 ms).
+# The delay wrapper's instances at n = 4 and 6 (chip_smoke.py:k1_crossover
+# over K1_SCOPE_SWEEP, phase 16, the same card, two runs): store-free the
+# thread design was the faster from B=1,056 on (at 528 the block design by
+# 2-7% at n = 4, the two within 1% at n = 6); with the stores the block
+# design at every batch (at B=132 already 3.5-10.8 against 0.30-0.62 ms).  At n = 8 the thread design spills (-Xptxas -v), and those
+# instances take the block design at every batch.
 THREAD_FROM = {(2, 1, 2): (1056, 1056), (2, 1, 1): (1056, 1056),
                (3, 1, 2): (1056, 1056), (4, 1, 3): (1056, 16384),
-               (5, 1, 2): (2048, None), (4, 2, 2): (1056, 16384)}
+               (5, 1, 2): (2048, None), (4, 2, 2): (1056, 16384),
+               (4, 1, 2): (1056, None), (4, 1, 1): (1056, None),
+               (6, 1, 2): (1056, None), (6, 1, 1): (1056, None),
+               **{k: (None, None) for k in PART if k[0] == 8}}
 
 
 def design_for(n: int, m: int, p: int, batch: int,
                stores: bool = False) -> str:
     """The K1 design ``design="auto"`` launches for ``batch`` particles of
-    instance ``(n, m, p)``, store-free or with the stores."""
-    cross = THREAD_FROM[(n, m, p)][int(stores)]
+    instance ``(n, m, p)`` (or of the instance it is padded onto),
+    store-free or with the stores."""
+    cross = THREAD_FROM[instance_for(n, m, p)][int(stores)]
     return "block" if cross is None or batch < cross else "thread"
+
+
+def _grow(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """``x (..., r, c)`` padded with zeros to ``(..., rows, cols)``."""
+    r, c = x.shape[-2:]
+    if (r, c) == (rows, cols):
+        return x
+    return nnf.pad(x, (0, cols - c, 0, rows - r))
 
 
 def _sym(M: torch.Tensor) -> torch.Tensor:
@@ -326,17 +383,20 @@ def fused_gains_vjp_reference(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar,
 
 
 def fused_gains_available(spec: LQGSpec) -> bool:
-    """Kernel scope: a stationary spec whose (n, m, p) is instantiated, with
-    square noise scales."""
+    """Kernel scope, lqg_tpu's: a stationary spec with n <= 8, m <= 2, p <= 3
+    and square noise scales."""
     if spec.A.dim() != spec.Qf.dim():  # stacked
         return False
     n, m, p = spec.A.shape[-1], spec.B.shape[-1], spec.F.shape[-2]
-    return ((n, m, p) in INSTANCES and spec.V.shape[-1] == n
+    return (in_scope(n, m, p) and spec.V.shape[-1] == n
             and spec.W.shape[-1] == p)
 
 
-def _lib():
-    lib = nvcc.load("gains")
+def _lib(nmp):
+    """The library of the part that holds instance ``nmp``."""
+    if nmp not in PART:
+        raise ValueError(f"(n, m, p) = {nmp} outside the kernels' scope")
+    lib = nvcc.load("gains", PART[nmp])
     lib.lqg_gains_fwd.argtypes = ([ctypes.c_void_p] * 14
                                   + [ctypes.c_int] * 5
                                   + [ctypes.c_float, ctypes.c_void_p])
@@ -387,14 +447,22 @@ def gains_fwd(A, Bm, Q, R, Qf, F, VV, WW, Sigma0, horizon: int,
     version, whatever the design."""
     if design not in DESIGNS:
         raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
+    n, m, p = _dims(A, Bm, F)
+    N = (instance_for(n, m, p) or (n,))[0]
+    if N != n:  # padded onto the instance, the padding sliced away
+        out = gains_fwd(_grow(A, N, N), _grow(Bm, N, m), _grow(Q, N, N),
+                        R, _grow(Qf, N, N), _grow(F, p, N),
+                        _grow(VV, N, N), WW, _grow(Sigma0, N, N), horizon,
+                        stores, design)
+        return ((out[0][..., :n], out[1], out[2][..., :n, :])
+                + tuple(x[..., :n, :n] for x in out[3:]))
     ins = (A, Bm, Q, R, Qf, F, VV, WW, Sigma0)
     if not _on_card(ins, "fused gains"):
         return _gains_reference(*ins, horizon, stores)
-    n, m, p = _dims(A, Bm, F)
     Bn, device = A.shape[0], A.device
     if design == "auto":
         design = design_for(n, m, p, Bn, stores)
-    lib = _lib()
+    lib = _lib((n, m, p))
     launch = (lib.lqg_gains_fwd if design == "thread"
               else lib.lqg_gains_fwd_block)
     ins = [x.contiguous() for x in ins]
@@ -426,16 +494,26 @@ def fused_gains_vjp(A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar):
     VVbar, WWbar, Sigma0bar)``, each ``(B, ., .)``.  A CUDA tensor launches
     the kernel (float32) or raises; a CPU tensor takes the plain version.
     """
+    n, m, p = _dims(A, Bm, F)
+    N = (instance_for(n, m, p) or (n,))[0]
+    if N != n:  # padded onto the instance, the padding sliced away
+        out = fused_gains_vjp(
+            _grow(A, N, N), _grow(Bm, N, m), R, _grow(F, p, N),
+            _grow(VV, N, N), WW, _grow(S_st, N, N), _grow(P_st, N, N),
+            _grow(Lbar, m, N), Hbar, _grow(Kbar, N, p))
+        Abar, Bbar, Qbar, Rbar, Qfbar, Fbar, VVbar, WWbar, S0bar = out
+        sq = lambda x: x[..., :n, :n]
+        return (sq(Abar), Bbar[..., :n, :], sq(Qbar), Rbar, sq(Qfbar),
+                Fbar[..., :n], sq(VVbar), WWbar, sq(S0bar))
     ins = (A, Bm, R, F, VV, WW, S_st, P_st, Lbar, Hbar, Kbar)
     if not _on_card(ins, "fused gains adjoint"):
         return fused_gains_vjp_reference(*ins)
-    n, m, p = _dims(A, Bm, F)
     T, Bn = S_st.shape[:2]
     ins = [x.contiguous() for x in ins]
     out = [torch.empty((Bn,) + shape, dtype=torch.float32, device=A.device)
            for shape in ((n, n), (n, m), (n, n), (m, m), (n, n), (p, n),
                          (n, n), (p, p), (n, n))]
-    status = _lib().lqg_gains_bwd(
+    status = _lib((n, m, p)).lqg_gains_bwd(
         *(x.data_ptr() for x in ins), *(x.data_ptr() for x in out),
         n, m, p, Bn, T, EPS, torch.cuda.current_stream(A.device).cuda_stream)
     nvcc.check(status, "gains_bwd")
@@ -549,8 +627,9 @@ def fused_gains(spec: LQGSpec, Sigma0: torch.Tensor, horizon: int):
             "terms (spec.zero_affine); use System.gains(method='scan')")
     if not fused_gains_available(spec) or spec.A.dim() != 3:
         raise ValueError(
-            f"spec outside the kernel's scope: batched stationary (n, m, p) "
-            f"in {sorted(INSTANCES)} required")
+            f"spec outside the kernel's scope: a batched stationary spec with "
+            f"n <= {MAX_N}, m <= {MAX_M}, p <= {MAX_P} and square noise "
+            f"scales required")
     if horizon < 1:
         raise ValueError(f"horizon must be positive, got {horizon}")
     fields = (spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F, spec.V,

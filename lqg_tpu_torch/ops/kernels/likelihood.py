@@ -48,11 +48,22 @@ without atomics.
 Stores, what ``ctx.save_for_backward`` holds: ``Sigma_t`` once per set,
 ``(P, T+1, j, j)``, and ``mu_t`` trial-fastest, ``(P, T+1, j, n)``.
 
+The scope is lqg_tpu's (``likelihood.py:456-460``): j <= 12, d <= 4 in
+float32.  K3 and K4 are templates on (j, d), built at the instances of
+:data:`PART`: the zoo's, the delay wrapper's (12, 2), and at j = 12 an
+envelope for each d.  Any other (j, d) in scope is padded with zeros in j
+onto the smallest instance with its d (:func:`instance_for`), and the
+wrappers slice the padded entries away.  The padding is exact: F and Q are
+zero in the padded block and mu_0 is zero there, so the padded joint states
+keep a zero covariance and mean, are never observed, and leave the
+quadratic form, the log det and the real rows of J as they are; every extra
+term of a sum is a product with a zero.
+
 The plain PyTorch versions :func:`conditioned_log_likelihood_reference` and
 :func:`conditioned_log_likelihood_vjp_reference` repeat the arithmetic
 (same closed-form inverses, same ``eps``, same Neumaier and fold order,
 same order of the trial sums); the wrappers take them only for tensors on
-the CPU.
+the CPU, padded as the kernels would be.
 """
 
 from __future__ import annotations
@@ -66,17 +77,40 @@ from torch.autograd.function import once_differentiable
 
 from lqg_tpu_torch.ops.linalg import mT
 from lqg_tpu_torch.ops.kernels import nvcc
-from lqg_tpu_torch.ops.kernels.gains import EPS, _on_card, _sym, _sym_inv_det
+from lqg_tpu_torch.ops.kernels.gains import (EPS, _grow, _on_card, _sym,
+                                             _sym_inv_det)
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
-# (j, d) instantiated in csrc/likelihood.cu: every dim=1 tracking model
-# (4, 2), the SubjectiveActor's 2 + 3 joint states (5, 2), PointMass (8, 2)
-# or (8, 4) by the dims observed, the dim=2 tracking models (8, 4), Hand
-# (10, 2) and SubjectiveActor(dim=2) (10, 4): every model of the zoo inside
-# lqg_tpu's kernel scope (j <= 12, d <= 4,
-# lqg_tpu/ops/pallas/likelihood.py:456-460)
-INSTANCES = frozenset({(4, 2), (5, 2), (8, 2), (8, 4), (10, 2), (10, 4)})
+# The (j, d) instantiated in csrc/likelihood.cu, each with the part of the
+# source (nvcc.PARTS) whose library holds it.  Part 0, the zoo: every dim=1
+# tracking model (4, 2), the SubjectiveActor's 2 + 3 joint states (5, 2),
+# PointMass (8, 2) or (8, 4) by the dims observed, the dim=2 tracking
+# models (8, 4), Hand (10, 2) and SubjectiveActor(dim=2) (10, 4).  Parts
+# 1-2, j = 12: TemporalDelayModel at delay 2 around the dim=1 models (12,
+# 2), RelativeObservationBoundedActor(dim=3) (12, 3), and the envelopes for
+# the other d of the scope.
+PART = {(4, 2): 0, (5, 2): 0, (8, 2): 0, (8, 4): 0, (10, 2): 0, (10, 4): 0,
+        (12, 2): 1, (12, 1): 1, (12, 3): 2, (12, 4): 2}
+INSTANCES = frozenset(PART)
+# lqg_tpu's kernel scope (lqg_tpu/ops/pallas/likelihood.py:456-460)
+MAX_J, MAX_D = 12, 4
+
+
+def in_scope(j: int, d: int) -> bool:
+    return 1 <= j <= MAX_J and 1 <= d <= MAX_D
+
+
+def instance_for(j: int, d: int):
+    """The instance K3 and K4 launch for ``(j, d)``: itself where it is
+    instantiated, else the smallest instance with its d and more joint
+    states, onto which the inputs are padded with zeros; None outside the
+    scope."""
+    if not in_scope(j, d):
+        return None
+    return min(k for k in INSTANCES if k[1] == d and k[0] >= j)
+
+
 MAX_TRIAL_THREADS = 128  # csrc/likelihood.cu kMaxTrialThreads
 
 
@@ -247,12 +281,15 @@ def conditioned_log_likelihood_vjp_reference(F, X, w, Sig_st, mu_st):
 
 
 def fused_ll_available(j: int, d: int, dtype) -> bool:
-    """Kernel scope: an instantiated (j, d) in float32."""
-    return (j, d) in INSTANCES and dtype == torch.float32
+    """Kernel scope, lqg_tpu's: j <= 12 and d <= 4 in float32."""
+    return in_scope(j, d) and dtype == torch.float32
 
 
-def _lib():
-    lib = nvcc.load("likelihood")
+def _lib(jd):
+    """The library of the part that holds instance ``jd``."""
+    if jd not in PART:
+        raise ValueError(f"(j, d) = {jd} outside the kernels' scope")
+    lib = nvcc.load("likelihood", PART[jd])
     lib.lqg_ll_fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                                + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     lib.lqg_ll_fwd.restype = ctypes.c_int
@@ -281,10 +318,16 @@ def ll_fwd(F, Q, X, stores: bool = False):
     carries ``Sigma_t (P, T+1, j, j)`` and ``mu_t (P, T+1, j, n)`` K4
     reads.  A CUDA tensor launches the kernel (float32) or raises; a CPU
     tensor takes the plain version."""
-    if not _on_card((F, Q, X), "fused likelihood"):
-        return conditioned_log_likelihood_reference(F, Q, X, stores)
     P_, T, j, _ = F.shape
     n, d = X.shape[1], X.shape[-1]
+    J = (instance_for(j, d) or (j,))[0]
+    if J != j:  # padded onto the instance, the padding sliced away
+        out = ll_fwd(_grow(F, J, J), _grow(Q, J, J), X, stores)
+        if not stores:
+            return out
+        return out[0], out[1][..., :j, :j], out[2][..., :j, :]
+    if not _on_card((F, Q, X), "fused likelihood"):
+        return conditioned_log_likelihood_reference(F, Q, X, stores)
     nt = trial_threads(n)
     F, Q, X = F.contiguous(), Q.contiguous(), X.contiguous()
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
@@ -292,7 +335,7 @@ def ll_fwd(F, Q, X, stores: bool = False):
     ll = new(P_, n)
     st = (new(P_, T + 1, j, j), new(P_, T + 1, j, n)) if stores else ()
     state = _state(P_, n, nt, j + 2, F.device)
-    status = _lib().lqg_ll_fwd(
+    status = _lib((j, d)).lqg_ll_fwd(
         F.data_ptr(), Q.data_ptr(), X.data_ptr(), ll.data_ptr(),
         *([x.data_ptr() for x in st] if stores else [None, None]),
         _ptr(state), j, d, P_, n, T, nt, EPS, T * d * _LOG_2PI,
@@ -315,11 +358,16 @@ def conditioned_log_likelihood_vjp(F, X, w, Sig_st, mu_st):
     the kernel), and ``Xbar (P, n, T+1, d)``.  A CUDA tensor launches the
     kernel (float32) or raises; a CPU tensor takes the plain version.
     """
+    P_, T, j, _ = F.shape
+    n, d = X.shape[1], X.shape[-1]
+    J = (instance_for(j, d) or (j,))[0]
+    if J != j:  # padded onto the instance, the padding sliced away
+        Fbar, Qbar, Xbar = conditioned_log_likelihood_vjp(
+            _grow(F, J, J), X, w, _grow(Sig_st, J, J), _grow(mu_st, J, n))
+        return Fbar[..., :j, :j], Qbar[..., :j, :j], Xbar
     ins = (F, X, w, Sig_st, mu_st)
     if not _on_card(ins, "fused likelihood adjoint"):
         return conditioned_log_likelihood_vjp_reference(*ins)
-    P_, T, j, _ = F.shape
-    n, d = X.shape[1], X.shape[-1]
     nt = trial_threads(n)
     ins = [x.contiguous() for x in ins]
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
@@ -327,7 +375,7 @@ def conditioned_log_likelihood_vjp(F, X, w, Sig_st, mu_st):
     Fbar, Qbar, Xbar = new(P_, T, j, j), new(P_, T, j, j), \
         new(P_, n, T + 1, d)
     state = _state(P_, n, nt, j, F.device)
-    status = _lib().lqg_ll_bwd(
+    status = _lib((j, d)).lqg_ll_bwd(
         *(x.data_ptr() for x in ins), Fbar.data_ptr(), Qbar.data_ptr(),
         Xbar.data_ptr(), _ptr(state), j, d, P_, n, T, nt, EPS,
         torch.cuda.current_stream(F.device).cuda_stream)
@@ -375,9 +423,9 @@ def conditioned_log_likelihood_fused(F: torch.Tensor, Q: torch.Tensor,
     if X.shape[0] != P_ or X.shape[2] != T + 1:
         raise ValueError(f"X {tuple(X.shape)} does not match F "
                          f"{tuple(F.shape)}: expected ({P_}, n, {T + 1}, d)")
-    if (j, d) not in INSTANCES:
-        raise ValueError(f"(j, d) = {(j, d)} outside the kernel's scope "
-                         f"{sorted(INSTANCES)}")
+    if not in_scope(j, d):
+        raise ValueError(f"(j, d) = {(j, d)} outside the kernel's scope: "
+                         f"j <= {MAX_J} and d <= {MAX_D} required")
     return _FusedLikelihood.apply(F, Q, X)
 
 

@@ -247,10 +247,19 @@ def test_plain_adjoint_matches_autograd(T):
         _against_autograd(case, T, B)
 
 
+# the zoo's instances (the source's first part), and of the instances that
+# the delay wrapper and the envelopes added, the delay paths' and the
+# largest: the plain K2's code is the same at every shape, and at n = 8 a
+# float64 case takes tens of seconds on the CPU
+ZOO_INSTANCES = sorted(k for k, part in kg.PART.items() if part == 0)
+SCOPE_CASES = [(4, 1, 2), (6, 1, 2), (8, 2, 3)]
+
+
 @pytest.mark.parametrize("kind,nmp,T", [
-    (kind, nmp, T) for nmp in sorted(kg.INSTANCES) for T in (13, 65)
+    (kind, nmp, T) for nmp in ZOO_INSTANCES for T in (13, 65)
     for kind in ("random",)] + [
-    ("model", nmp, T) for nmp in sorted(ZOO_MODELS) for T in (13, 240)])
+    ("model", nmp, T) for nmp in sorted(ZOO_MODELS) for T in (13, 240)] + [
+    ("random", nmp, 65) for nmp in SCOPE_CASES])
 def test_plain_adjoint_matches_autograd_at_every_instance(kind, nmp, T):
     """Every instance of K2 against autograd through the plain K1: a random
     spec at each, the (4, 2, 2) one open-loop unstable, and the zoo
@@ -335,9 +344,11 @@ def test_riccati_carry_needs_the_projection_at_two_controls():
     assert float((L32.flip(0).double() - exact).abs().max()) < 1e-4
 
 
-@pytest.mark.parametrize("T", [1, kg.CHUNK - 1, kg.CHUNK, kg.CHUNK + 1,
-                               2 * kg.CHUNK + 5, 37])
-@pytest.mark.parametrize("n,m,p", sorted(kg.INSTANCES))
+@pytest.mark.parametrize("n,m,p,T", [
+    (*nmp, T) for T in (1, kg.CHUNK - 1, kg.CHUNK, kg.CHUNK + 1,
+                        2 * kg.CHUNK + 5, 37)
+    for nmp in ZOO_INSTANCES] + [
+    (*nmp, 2 * kg.CHUNK + 5) for nmp in SCOPE_CASES])
 def test_three_pass_adjoint_matches_serial_oracle(n, m, p, T):
     """The plain K2 in the kernel's parts (recompute over all steps, the
     two carries alone, chunked sums) gives the serial loop's cotangents,
@@ -392,11 +403,17 @@ def _sweep_spec(B, device):
     return tracking_spec(1, 1.0, av, st, sc, c, 1 / 60, device=device)
 
 
-@pytest.mark.cuda
-def test_adjoint_kernel_matches_reference_on_card(cuda):
-    """K1's stores and K2 against their plain versions: the potential's
-    shape, 2,048 specs at a prime T, and each instance at a ragged T (two
-    chunks and one step); two K2 launches give the same bits."""
+def _adjoint_cases(cuda):
+    """(spec, K1's inputs, T): the potential's shape, 2,048 specs at a
+    prime T, each of the zoo's instances on a random spec at a ragged T
+    (two chunks and one step), and each instance added for the delay
+    wrapper and the envelopes, and two padded shapes, at the same T.
+    These take the card tests' scope specs (the delay wrapper's models, a
+    stable random spec; tests/test_torch_gains_kernel.py): at n >= 6 the
+    random specs here are ill-conditioned in float32, whose plain version
+    is then 2-19x this test's tolerance from float64."""
+    from test_torch_gains_kernel import SCOPE, _scope_spec
+
     cases = []
     for B, T in ((24, 1008), (2048, 719)):
         spec = _sweep_spec(B, cuda)
@@ -404,15 +421,30 @@ def test_adjoint_kernel_matches_reference_on_card(cuda):
         cases.append((spec, [x.expand((B,) + x.shape[-2:]).contiguous()
                              for x in (spec.A, spec.B, spec.Q, spec.R,
                                        spec.Qf, spec.F, VV, WW, VV)], T))
-    for n, m, p in sorted(kg.INSTANCES):
+    T = 2 * kg.CHUNK + 1
+    for n, m, p in ZOO_INSTANCES:
         spec = _torch_spec(_random_spec(4, B=5, n=n, m=m, p=p),
                            torch.float32)[0]
         spec = spec._replace(**{k: getattr(spec, k).to(cuda)
                                 for k in FIELDS})
         VV, WW = spec.V @ mT(spec.V), spec.W @ mT(spec.W)
         cases.append((spec, [spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F,
-                             VV, WW, VV], 2 * kg.CHUNK + 1))
-    for spec, ins, T in cases:
+                             VV, WW, VV], T))
+    for nmp in SCOPE:
+        spec = _scope_spec(nmp, 5, T, device=cuda)
+        VV, WW = spec.V @ mT(spec.V), spec.W @ mT(spec.W)
+        cases.append((spec, [x.contiguous() for x in (
+            spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F, VV, WW, VV)],
+            T))
+    return cases
+
+
+@pytest.mark.cuda
+def test_adjoint_kernel_matches_reference_on_card(cuda):
+    """K1's stores and K2 against their plain versions: the potential's
+    shape, 2,048 specs at a prime T, and each instance at a ragged T (two
+    chunks and one step); two K2 launches give the same bits."""
+    for spec, ins, T in _adjoint_cases(cuda):
         out = kg.gains_fwd(*ins, T, stores=True)
         ref = kg.fused_gains_reference(spec, ins[-1], T, stores=True)
         for a, b in zip(out, ref):
@@ -434,3 +466,27 @@ def test_adjoint_kernel_matches_reference_on_card(cuda):
         for a, b in zip(got, want):
             torch.testing.assert_close(
                 a, b, rtol=RTOL, atol=ATOL + 1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_adjoint_kernel_matches_float64_reference_on_card(cuda):
+    """A second reference beside the test above: K2 against the plain K2 in
+    float64 on the same float32 stores and cotangents (upcast), so that K2
+    is held to its arithmetic's exact value and not only to the float32
+    plain version's rounding, which the last bit of K1's stores moves; the
+    same cases and the same tolerance."""
+    for spec, ins, T in _adjoint_cases(cuda):
+        out = kg.gains_fwd(*ins, T, stores=True)
+        g = torch.Generator(device=cuda).manual_seed(0)
+        cots = [0.3 * torch.randn(x.shape, generator=g, device=cuda)
+                for x in out[:3]]
+        A, Bm, _, R, _, F, VV, WW, _ = ins
+        args = (A, Bm, R, F, VV, WW, *out[3:], *cots)
+        got = kg.fused_gains_vjp(*args)
+        want = kg.fused_gains_vjp_reference(*(x.double() for x in args))
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(
+                a.double(), b, rtol=RTOL,
+                atol=ATOL + 1e-5 * float(b.abs().max()))
+

@@ -4,9 +4,11 @@ On the CPU: the plain PyTorch version against the JAX package's Pallas
 kernel in interpret mode (float32), at every instance, and the wrapper's
 checks, its choice between K1's two designs (thread, block) among them.
 On a card (``-m cuda``): the CUDA kernel against the plain version, at the
-bench's (2, 1, 2) and at the model zoo's (4, 1, 3), (5, 1, 2) and (4, 2,
-2), and the block design against the plain version and against the thread
-design bit for bit at every instance.  JAX is imported inside the tests
+bench's (2, 1, 2), at the model zoo's (4, 1, 3), (5, 1, 2) and (4, 2, 2),
+at the instances added for the delay wrapper and the envelopes at n = 8,
+and through the padded route; the block design against the plain version
+and against the thread design bit for bit at every instance; and the
+probe parameter sets of tests/test_torch_nonfinite.py at a padded shape.  JAX is imported inside the tests
 that use it, so that the card's tests collect where JAX is not installed.
 """
 
@@ -52,6 +54,61 @@ INSTANCE_MODELS = {
 }
 
 
+# the instances added for TemporalDelayModel at delays 1-3 (the wrapped
+# model and the delay; the point mass at delay 1 is the envelope (8, 1, 3))
+# and the other envelopes at n = 8 (None: a random spec with a stable open
+# loop), and two shapes padded onto envelopes
+SCOPE_MODELS = {(4, 1, 2): ("BoundedActor", 1), (6, 1, 2): ("BoundedActor", 2),
+                (8, 1, 2): ("BoundedActor", 3),
+                (4, 1, 1): ("RelativeObservationBoundedActor", 1),
+                (6, 1, 1): ("RelativeObservationBoundedActor", 2),
+                (8, 1, 1): ("RelativeObservationBoundedActor", 3),
+                (8, 1, 3): ("PointMassBoundedActor", 1), (8, 2, 1): None,
+                (8, 2, 2): None, (8, 2, 3): None, (3, 2, 3): None,
+                (7, 1, 3): None}
+SCOPE = sorted(SCOPE_MODELS)
+
+
+def _stable_spec(nmp, B, device="cpu", seed=0):
+    """B random stationary specs at ``nmp`` with a stable open loop (A =
+    0.9 I + noise), float32."""
+    from lqg_tpu_torch.utils import stationary_spec
+
+    n, m, p = nmp
+    rng = np.random.default_rng(seed + sum(nmp))
+    rnd = lambda *sh: 0.3 * rng.normal(size=sh)
+    sym = lambda M: 0.5 * (M + np.swapaxes(M, -1, -2))
+    f = dict(A=0.9 * np.eye(n) + 0.1 * rnd(B, n, n), B=rnd(B, n, m) + 0.5,
+             Q=sym(np.eye(n) + 0.05 * rnd(B, n, n)),
+             R=sym(0.8 * np.eye(m) + 0.01 * np.abs(rnd(B, m, m))),
+             F=rnd(B, p, n) + np.eye(p, n),
+             V=0.7 * np.eye(n) + 0.05 * rnd(B, n, n),
+             W=0.9 * np.eye(p) + 0.05 * rnd(B, p, p),
+             Qf=sym(1.5 * np.eye(n) + 0.05 * rnd(B, n, n)))
+    t = {k: torch.tensor(v, dtype=torch.float32, device=device)
+         for k, v in f.items()}
+    return stationary_spec(**{k: t[k] for k in "ABFVWQR"})._replace(
+        Qf=t["Qf"])
+
+
+def _scope_spec(nmp, B, T, device="cpu"):
+    """The actor spec of B parameter sets at a scope shape: the delay
+    wrapper's model, the action cost spread over the batch, or a stable
+    random spec; float32, every field ``(B, ., .)``."""
+    from lqg_tpu_torch.models import TemporalDelayModel
+
+    model = SCOPE_MODELS[nmp]
+    if model is None:
+        return _stable_spec(nmp, B, device)
+    name, delay = model
+    spec = TemporalDelayModel(_PORT[name](
+        T=T, action_cost=torch.tensor(_costs(B), dtype=torch.float32),
+        device=device), delay=delay).actor
+    return spec._replace(**{k: getattr(spec, k).expand(
+        (B,) + getattr(spec, k).shape[-2:]) for k in (
+        "A", "B", "F", "V", "W", "Q", "R", "Qf")})
+
+
 def _zoo_spec(nmp, T, device="cpu"):
     """The port's batched actor spec of a zoo instance, float32."""
     name, kw, costs = ZOO[nmp]
@@ -65,11 +122,14 @@ def _costs(B):
 
 def _instance_spec(nmp, B, T, device="cpu"):
     """The port's actor spec of B parameter sets of the instance's model,
-    the action cost spread over the batch, float32; and K1's inputs."""
-    name, kw = INSTANCE_MODELS[nmp]
-    spec = _PORT[name](T=T, action_cost=torch.tensor(_costs(B),
-                                                      dtype=torch.float32),
-                       device=device, **kw).actor
+    the action cost spread over the batch (at a scope shape,
+    :func:`_scope_spec`), float32; and K1's inputs."""
+    if nmp in INSTANCE_MODELS:
+        name, kw = INSTANCE_MODELS[nmp]
+        spec = _PORT[name](T=T, action_cost=torch.tensor(
+            _costs(B), dtype=torch.float32), device=device, **kw).actor
+    else:
+        spec = _scope_spec(nmp, B, T, device)
     VV = spec.V @ mT(spec.V)
     ins = [x.expand((B,) + x.shape[-2:]).contiguous() for x in (
         spec.A, spec.B, spec.Q, spec.R, spec.Qf, spec.F, VV,
@@ -221,12 +281,15 @@ def test_kernel_matches_reference_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nmp", sorted(ZOO))
+@pytest.mark.parametrize("nmp", sorted(ZOO) + SCOPE)
 def test_zoo_instances_match_reference_on_card(cuda, nmp):
-    """K1 at the zoo's instances, the models' own specs, 3 parameter sets
-    at T=1000 and 96 at a prime T, against the plain version."""
+    """K1 at the zoo's instances, the models' own specs, at the instances
+    added for the delay wrapper and the envelopes, and at two shapes padded
+    onto envelopes, 3 parameter sets at T=1000 and 96 at a prime T, against
+    the plain version at the true shape."""
     for T, reps in ((1000, 1), (719, 32)):
-        spec = _zoo_spec(nmp, T, device=cuda)
+        spec = (_zoo_spec(nmp, T, device=cuda) if nmp in ZOO
+                else _scope_spec(nmp, 3, T, device=cuda))
         spec = spec._replace(**{k: torch.cat([getattr(spec, k)] * reps)
                                 for k in ("A", "B", "F", "V", "W", "Q", "R",
                                           "Qf")})
@@ -335,7 +398,7 @@ def _as_if_on_card(monkeypatch, lib):
     """gains_fwd's card path on CPU tensors, with ``lib`` as the library."""
     from lqg_tpu_torch.ops.kernels import nvcc
 
-    monkeypatch.setattr(nvcc, "load", lambda name: lib)
+    monkeypatch.setattr(nvcc, "load", lambda name, part=0: lib)
     monkeypatch.setattr(kg, "_on_card", lambda tensors, what: True)
     monkeypatch.setattr(kg, "_stream", lambda device: 0)
     monkeypatch.setattr(fused_gains, "launches", 0)
@@ -375,7 +438,7 @@ def test_block_design_failures_raise(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nmp", sorted(INSTANCE_MODELS))
+@pytest.mark.parametrize("nmp", sorted(INSTANCE_MODELS) + SCOPE)
 def test_block_design_matches_thread_design_bits_on_card(cuda, nmp):
     """The block design gives the thread design's bits, store-free and with
     the stores, at B in {1, 4, 24, 33} and T in {1, 37, 1008}; K2 fed the
@@ -417,3 +480,62 @@ def test_block_design_matches_reference_on_card(cuda, nmp):
             torch.testing.assert_close(a, b, rtol=0, atol=atol)
         for a, b in zip(out[3:], ref[3:]):  # the stores, at K2's tolerance
             torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+
+
+# the probe parameter sets of tests/test_torch_nonfinite.py, and the
+# default bounded actor last
+PROBES = [dict(action_cost=float("nan")), dict(sigma_target=float("inf")),
+          dict(action_variability=1e-300, sigma_target=1e-300,
+               sigma_cursor=1e-300),
+          dict(action_cost=-1.0), {}]
+
+
+def probe_gains_inputs(n=7, device="cpu"):
+    """K1's nine inputs for the probe bounded actors, (2, 1, 2), padded by
+    hand with zeros to n states: at n = 7, a shape that K1 and K2 pad once
+    more, onto (8, 1, 2).  The real block is the bounded actor's."""
+    specs = [BoundedActor(T=8, **p, device="cpu").actor for p in PROBES]
+    fields = [torch.stack([getattr(s, k) for s in specs])
+              for k in ("A", "B", "Q", "R", "Qf", "F", "V", "W")]
+    A, Bm, Q, R, Qf, F, V, W = fields
+    VV, WW = V @ mT(V), W @ mT(W)
+    grow = kg._grow
+    return [x.to(device) for x in (
+        grow(A, n, n), grow(Bm, n, 1), grow(Q, n, n), R, grow(Qf, n, n),
+        grow(F, 2, n), grow(VV, n, n), WW, grow(VV, n, n))]
+
+
+@pytest.mark.cuda
+def test_probe_nans_stay_in_their_particle_on_card(cuda):
+    """The probe parameter sets at a padded shape, (7, 1, 2) onto (8, 1,
+    2): K1 (with the stores) and K2 give NaN exactly where their plain
+    versions give NaN on the same inputs (where lqg_tpu's kernels do,
+    tests/test_torch_kernel_scope.py), and the default actor, launched
+    beside them, gives the bits of its launch alone: no NaN leaks from one
+    particle into another."""
+    T = 37
+    ins_cpu = probe_gains_inputs()
+    ins = [x.to(cuda) for x in ins_cpu]
+    out = kg.gains_fwd(*ins, T, stores=True)
+    alone = kg.gains_fwd(*(x[-1:] for x in ins), T, stores=True)
+    want = kg.gains_fwd(*ins_cpu, T, stores=True)
+    g = torch.Generator().manual_seed(0)
+    cots = [0.3 * torch.randn(x.shape, generator=g) for x in want[:3]]
+    A, Bm, _, R, _, F, VV, WW, _ = ins
+    vjp_ins = (A, Bm, R, F, VV, WW)
+    got = kg.fused_gains_vjp(*vjp_ins, *out[3:], *(c.to(cuda) for c in cots))
+    got_alone = kg.fused_gains_vjp(*(x[-1:] for x in vjp_ins),
+                                   *(x[:, -1:] for x in alone[3:]),
+                                   *(c[:, -1:].to(cuda) for c in cots))
+    A, Bm, _, R, _, F, VV, WW, _ = ins_cpu
+    want_vjp = kg.fused_gains_vjp(A, Bm, R, F, VV, WW, *want[3:], *cots)
+    torch.cuda.synchronize()
+    for a, b, one in zip(out, want, alone):  # (T, B, ., .)
+        assert torch.equal(torch.isnan(a.cpu()), torch.isnan(b))
+        assert torch.isfinite(a[:, -1]).all()
+        assert torch.equal(a[:, -1:], one)
+    for a, b, one in zip(got, want_vjp, got_alone):  # (B, ., .)
+        assert torch.equal(torch.isnan(a.cpu()), torch.isnan(b))
+        assert torch.isfinite(a[-1]).all()
+        assert torch.equal(a[-1:], one)
+

@@ -64,6 +64,36 @@ MODELS = {
 ZOO = [(8, 2), (8, 4), (10, 2), (10, 4)]  # the model zoo's instances
 
 
+def _delayed(name, delay):
+    from lqg_tpu_torch import models
+
+    def make(sigma_target, **kw):
+        noise = ({"sigma": sigma_target} if name.startswith("Relative")
+                 else {"sigma_target": sigma_target})
+        return models.TemporalDelayModel(getattr(models, name)(**noise, **kw),
+                                         delay=delay)
+    return make
+
+
+def _relative(dim):
+    from lqg_tpu_torch.models import RelativeObservationBoundedActor
+
+    return lambda sigma_target, **kw: RelativeObservationBoundedActor(
+        dim=dim, sigma=sigma_target, **kw)
+
+
+# the instances at j = 12: the delay-2 bounded actor (12, 2), the delay-2
+# relative-observation actor scored on one dim (12, 1),
+# RelativeObservationBoundedActor(dim=3) (12, 3), BoundedActor(dim=3) on
+# four dims (12, 4); and two shapes padded onto them (a random stable
+# joint system, :func:`_stable_case`)
+MODELS.update({(12, 2): _delayed("BoundedActor", 2),
+               (12, 1): _delayed("RelativeObservationBoundedActor", 2),
+               (12, 3): _relative(3),
+               (12, 4): lambda **kw: BoundedActor(dim=3, **kw)})
+SCOPE = [(12, 1), (12, 2), (12, 3), (12, 4), (6, 3), (3, 1)]
+
+
 def _port_case(j, P, n, T, seed=0, device="cpu", dtype=torch.float64, d=2):
     """F, Q of P port models of joint dim j and d observed dims
     (:data:`MODELS`) with spread parameters, and n random-walk trials
@@ -79,6 +109,20 @@ def _port_case(j, P, n, T, seed=0, device="cpu", dtype=torch.float64, d=2):
                   axis=2)
     return (torch.stack(Fs), torch.stack(Qs),
             torch.tensor(X, dtype=dtype, device=device))
+
+
+def _stable_case(j, P, n, T, d, device="cpu", dtype=torch.float32, seed=0):
+    """A random joint system with a stable transition (orthogonal x 0.97)
+    and n random-walk trials each, drawn with numpy."""
+    rng = np.random.default_rng(seed + j + 10 * d)
+    A = np.stack([np.linalg.qr(rng.normal(size=(j, j)))[0] * 0.97
+                  for _ in range(P)])
+    G = 0.3 * rng.normal(size=(P, j, j)) + 0.5 * np.eye(j)
+    X = 0.3 * np.cumsum(rng.normal(size=(P, n, T + 1, d)), axis=2)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    F = t(A)[:, None].expand(P, T, j, j).contiguous()
+    Q = (t(G) @ mT(t(G)))[:, None].expand(P, T, j, j).contiguous()
+    return F, Q, t(X)
 
 
 def _per_lane_reference(F, Q, X):
@@ -191,7 +235,11 @@ def test_wrapper_on_cpu_is_the_reference():
     assert conditioned_log_likelihood_fused.launches == before
     assert fused_ll_available(4, 2, torch.float32)
     assert not fused_ll_available(4, 2, torch.float64)
-    assert not fused_ll_available(6, 2, torch.float32)  # no instance
+    # lqg_tpu's scope, j <= 12 and d <= 4: (6, 2) has no instance and is
+    # padded onto (8, 2)
+    assert fused_ll_available(6, 2, torch.float32)
+    assert not fused_ll_available(13, 2, torch.float32)
+    assert not fused_ll_available(4, 5, torch.float32)
 
 
 def test_wrapper_checks():
@@ -212,8 +260,9 @@ def test_wrapper_checks():
                                atol=1e-7 * float(g_scan.abs().max()))
     with pytest.raises(ValueError, match="does not match"):
         conditioned_log_likelihood_fused(F.detach(), Q, X[:, :, :-1])
-    with pytest.raises(ValueError, match="scope"):
-        conditioned_log_likelihood_fused(F.detach(), Q, X[..., :1])
+    with pytest.raises(ValueError, match="scope"):  # d = 5 > 4
+        conditioned_log_likelihood_fused(F.detach(), Q,
+                                          torch.cat([X] * 3, -1)[..., :5])
 
 
 @pytest.mark.cuda
@@ -253,16 +302,18 @@ def test_kernel_variants_match_reference_on_card(cuda, j, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("jd", ZOO)
+@pytest.mark.parametrize("jd", ZOO + SCOPE)
 def test_kernel_zoo_instances_match_reference_on_card(cuda, jd):
-    """The zoo's instances at the fit's shape, 24 sets x 20 trials at T=1008
-    (j^2 > 32: the covariance warp takes several element rounds a step),
-    and at 3 sets x 300 trials (three a thread): both variants of K3 and the
-    stores against the plain version."""
+    """The zoo's instances, the instances at j = 12 and two shapes padded
+    onto them, at the fit's shape, 24 sets x 20 trials at T=1008 (j^2 > 32:
+    the covariance warp takes several element rounds a step), and at 3 sets
+    x 300 trials (three a thread): both variants of K3 and the stores
+    against the plain version at the true shape."""
     j, d = jd
     for P, n, T in ((24, 20, 1008), (3, 300, 120)):
-        F, Q, X = _port_case(j, P=P, n=n, T=T, d=d, device=cuda,
-                             dtype=torch.float32)
+        case = _port_case if jd in MODELS else _stable_case
+        F, Q, X = case(j, P=P, n=n, T=T, d=d, device=cuda,
+                       dtype=torch.float32)
         ll = ll_fwd(F, Q, X)
         got = ll_fwd(F, Q, X, stores=True)
         want = conditioned_log_likelihood_reference(F, Q, X, stores=True)
@@ -275,3 +326,53 @@ def test_kernel_zoo_instances_match_reference_on_card(cuda, jd):
             assert bool((err <= ATOL + RTOL * b.abs()
                          + STORE_SCALE * row).all()), float(
                 (err.amax(dim=(0, 1, 3), keepdim=True) / row).max())
+
+
+def probe_ll_inputs(j=6, T=37, n=3):
+    """F, Q ``(5, T, j, j)`` of the joint systems of the probe bounded
+    actors of tests/test_torch_nonfinite.py and the default one (last),
+    float32, (4, 2) padded by hand with zeros to j joint states: at j = 6, a
+    shape that K3 and K4 pad once more, onto (8, 2); and X, n trials of the
+    default actor for every set."""
+    from test_torch_gains_kernel import PROBES
+
+    Fs, Qs = [], []
+    for p in PROBES:
+        joint = BoundedActor(T=T, **p, device="cpu")._joint(
+            gains_method="scan")
+        Fs.append(joint.F)
+        Qs.append(joint.G @ mT(joint.G))
+    grow = lambda M: nnf.pad(M, (0, j - 4, 0, j - 4))
+    x = BoundedActor(T=T, device="cpu").simulate(
+        torch.Generator().manual_seed(0), n=n)
+    return (grow(torch.stack(Fs)), grow(torch.stack(Qs)),
+            x.expand((len(PROBES),) + x.shape).contiguous())
+
+
+@pytest.mark.cuda
+def test_probe_nans_stay_in_their_set_on_card(cuda):
+    """The probe parameter sets at a padded shape, (6, 2) onto (8, 2): K3
+    (with the stores) and K4 give NaN exactly where their plain versions
+    give NaN on the same inputs (where lqg_tpu's kernels do,
+    tests/test_torch_kernel_scope.py), and the default actor's set,
+    launched beside them, gives the bits of its launch alone: no NaN leaks
+    from one set into another."""
+    from lqg_tpu_torch.ops.kernels.likelihood import (
+        conditioned_log_likelihood_vjp)
+
+    cpu = probe_ll_inputs()
+    F, Q, X = (x.to(cuda) for x in cpu)
+    out = ll_fwd(F, Q, X, stores=True)
+    alone = ll_fwd(F[-1:], Q[-1:], X[-1:], stores=True)
+    want = ll_fwd(*cpu, stores=True)
+    w = torch.randn(want[0].shape, generator=torch.Generator().manual_seed(1))
+    got = conditioned_log_likelihood_vjp(F, X, w.to(cuda), *out[1:])
+    got_alone = conditioned_log_likelihood_vjp(F[-1:], X[-1:],
+                                               w[-1:].to(cuda), *alone[1:])
+    want_vjp = conditioned_log_likelihood_vjp(cpu[0], cpu[2], w, *want[1:])
+    torch.cuda.synchronize()
+    for a, b, one in zip(out + got, want + want_vjp, alone + got_alone):
+        assert torch.equal(torch.isnan(a.cpu()), torch.isnan(b))
+        assert torch.isfinite(a[-1]).all()
+        assert torch.equal(a[-1:], one)
+

@@ -20,6 +20,13 @@ The optimizers and the ELBO of :mod:`lqg_tpu_torch.infer.svi` and
 :mod:`~lqg_tpu_torch.infer.flows` differentiate with respect to other
 parameters through ``u``: :class:`GraphedPotential` puts the replayed value
 and gradient into their autograd graph.
+
+Under :func:`lqg_tpu_torch.utils.profiling.tracing` a construction records
+the spans ``graph.warmup``, ``graph.capture`` and ``graph.instantiate`` and
+counts ``graph.captures``; a call records the span ``graph.replay``, its
+card side marked by CUDA events around ``graph.replay()`` itself, and
+counts ``graph.replays``.  Nothing is recorded inside the capture: a replay
+runs none of the potential's host code.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import time
 from typing import Callable
 
 import torch
+
+from lqg_tpu_torch.utils import profiling
 
 
 def eager_value_and_grad(potential: Callable) -> Callable:
@@ -65,6 +74,7 @@ class GraphedValueAndGrad:
             raise ValueError("a CUDA graph needs a tensor on the card")
         self.u = u0.detach().clone()
         eager = eager_value_and_grad(potential)
+        t0 = time.perf_counter_ns()
         side = torch.cuda.Stream(device=u0.device)
         side.wait_stream(torch.cuda.current_stream(u0.device))
         with torch.cuda.stream(side):
@@ -72,27 +82,33 @@ class GraphedValueAndGrad:
                 eager(self.u)
         torch.cuda.current_stream(u0.device).wait_stream(side)
         torch.cuda.synchronize(u0.device)
+        profiling.span_since("graph.warmup", t0)
 
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         with torch.enable_grad(), torch.cuda.graph(self.graph):
             u = self.u.detach().requires_grad_()
             pe = potential(u)
             (grad,) = torch.autograd.grad(pe.sum(), u)
-        self.capture_s = time.perf_counter() - t0
+        self.capture_s = profiling.span_since("graph.capture", t0)
         self.pe, self.grad = pe.detach(), grad
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         self.graph.instantiate()
         torch.cuda.synchronize(u0.device)
-        self.instantiate_s = time.perf_counter() - t0
+        self.instantiate_s = profiling.span_since("graph.instantiate", t0)
+        profiling.count("graph.captures")
         self.replays = 0
 
     def __call__(self, z: torch.Tensor):
-        self.u.copy_(z)
-        self.graph.replay()
-        self.replays += 1
-        # the next replay overwrites the static outputs
-        return self.pe.clone(), self.grad.clone()
+        with profiling.span("graph.replay") as span:
+            self.u.copy_(z)
+            span.card_start()
+            self.graph.replay()
+            span.card_end()
+            self.replays += 1
+            profiling.count("graph.replays")
+            # the next replay overwrites the static outputs
+            return self.pe.clone(), self.grad.clone()
 
 
 def value_and_grad_fn(potential: Callable, u0: torch.Tensor) -> Callable:

@@ -30,6 +30,12 @@ JAX's key schedule makes.
 ``value_and_grad(z)`` gives the potential and its gradient, ``(C,)`` and
 ``(C, D)``, as new tensors: on the card a replay of one captured CUDA graph
 (:mod:`lqg_tpu_torch.infer.capture`).
+
+Under :func:`lqg_tpu_torch.utils.profiling.tracing` a transition records the
+spans ``nuts.transition`` > ``nuts.leaf`` > ``nuts.sync`` (the two host
+reads, :func:`_any_on_host`) and the counters ``nuts.leaves``,
+``nuts.host_syncs`` and, on the device, ``nuts.chain_leaves_useful`` (the
+chain-leaves of chains still growing their half-tree).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from lqg_tpu_torch.ops.linalg import mT
+from lqg_tpu_torch.utils import profiling
 
 ValueAndGrad = Callable[[torch.Tensor], tuple]
 
@@ -145,6 +152,14 @@ class _TreeState(NamedTuple):
     num_leaves: torch.Tensor
 
 
+def _any_on_host(mask: torch.Tensor) -> bool:
+    """``mask.any()`` read on the host: the sampler's only waits for the
+    card."""
+    with profiling.span("nuts.sync"):
+        profiling.count("nuts.host_syncs")
+        return bool(mask.any())
+
+
 def _popcount(n: int) -> int:
     return bin(n).count("1")
 
@@ -172,41 +187,46 @@ def _build_subtree(value_and_grad, inv_mass, step_size, forward, depth,
     r_ckpts, rho_ckpts = {}, {}
     state = edge
     for i in range(1 << depth):
-        # a half-tree freezes once it turns or diverges: its later leaves
-        # are computed by the JAX loop and discarded
-        stop = tree.turning | tree.diverging
-        if i and not bool((active & ~stop).any()):
-            break
-        new = leapfrog(value_and_grad, inv_mass, eps, state)
-        delta = new.pe + kinetic(inv_mass, new.r) - energy0
-        delta = torch.where(torch.isnan(delta), math.inf, delta)
-        log_w = -delta
-        # multinomial progressive sampling within the half-tree
-        log_weight = torch.logaddexp(tree.log_weight, log_w)
-        take = leaf_u[:, i] < torch.exp(log_w - log_weight)
-        rho = tree.rho + new.r
-        if i % 2 == 0:  # checkpoint store
-            k = _popcount(i)
-            r_ckpts[k], rho_ckpts[k] = new.r, tree.rho
-            turning = tree.turning
-        else:  # close every subtree that ends at this leaf
-            idx_max = _popcount(i >> 1)
-            turning = tree.turning
-            for k in range(idx_max - _trailing_ones(i) + 1, idx_max + 1):
-                turning = turning | _uturn(inv_mass, r_ckpts[k], new.r,
-                                           rho - rho_ckpts[k])
-        grown = _TreeState(
-            right=new,
-            z_prop=_pick(take, new.z, tree.z_prop),
-            pe_prop=_pick(take, new.pe, tree.pe_prop),
-            grad_prop=_pick(take, new.grad, tree.grad_prop),
-            log_weight=log_weight, rho=rho, turning=turning,
-            diverging=tree.diverging | (delta > max_delta_energy),
-            sum_accept=tree.sum_accept + torch.clamp(torch.exp(-delta),
-                                                     max=1.0),
-            num_leaves=tree.num_leaves + 1)
-        tree = _pick(stop, tree, grown)
-        state = _pick(stop, state, new)
+        with profiling.span("nuts.leaf"):
+            # a half-tree freezes once it turns or diverges: its later leaves
+            # are computed by the JAX loop and discarded
+            stop = tree.turning | tree.diverging
+            # at the first leaf no chain has stopped
+            growing = active & ~stop if i else active
+            if i and not _any_on_host(growing):
+                break
+            profiling.count("nuts.leaves")
+            profiling.count_device("nuts.chain_leaves_useful", growing)
+            new = leapfrog(value_and_grad, inv_mass, eps, state)
+            delta = new.pe + kinetic(inv_mass, new.r) - energy0
+            delta = torch.where(torch.isnan(delta), math.inf, delta)
+            log_w = -delta
+            # multinomial progressive sampling within the half-tree
+            log_weight = torch.logaddexp(tree.log_weight, log_w)
+            take = leaf_u[:, i] < torch.exp(log_w - log_weight)
+            rho = tree.rho + new.r
+            if i % 2 == 0:  # checkpoint store
+                k = _popcount(i)
+                r_ckpts[k], rho_ckpts[k] = new.r, tree.rho
+                turning = tree.turning
+            else:  # close every subtree that ends at this leaf
+                idx_max = _popcount(i >> 1)
+                turning = tree.turning
+                for k in range(idx_max - _trailing_ones(i) + 1, idx_max + 1):
+                    turning = turning | _uturn(inv_mass, r_ckpts[k], new.r,
+                                               rho - rho_ckpts[k])
+            grown = _TreeState(
+                right=new,
+                z_prop=_pick(take, new.z, tree.z_prop),
+                pe_prop=_pick(take, new.pe, tree.pe_prop),
+                grad_prop=_pick(take, new.grad, tree.grad_prop),
+                log_weight=log_weight, rho=rho, turning=turning,
+                diverging=tree.diverging | (delta > max_delta_energy),
+                sum_accept=tree.sum_accept + torch.clamp(torch.exp(-delta),
+                                                         max=1.0),
+                num_leaves=tree.num_leaves + 1)
+            tree = _pick(stop, tree, grown)
+            state = _pick(stop, state, new)
     return tree
 
 
@@ -235,48 +255,52 @@ def nuts_step(value_and_grad: ValueAndGrad, draws: NUTSDraws, z, pe, grad,
     Returns ``(z', pe', grad', NUTSInfo)``, each per chain.
     """
     cap = max_depth if depth_cap is None else min(int(depth_cap), max_depth)
-    r0 = sample_momentum(draws.eps, inv_mass)
-    energy0 = pe + kinetic(inv_mass, r0)
-    start = IntegratorState(z=z, r=r0, pe=pe, grad=grad)
-    zeros = torch.zeros_like(pe)
-    left, right = start, start
-    prop = (z, pe, grad)
-    log_weight, rho = zeros, r0
-    turning, diverging = zeros.bool(), zeros.bool()
-    sum_accept, num_leaves = zeros, zeros
-    depth = torch.zeros(pe.shape, dtype=torch.int32, device=pe.device)
-    for d in range(cap):
-        # every chain still doubling is at depth d
-        active = ~(turning | diverging)
-        if not bool(active.any()):
-            break
-        forward = draws.forward[:, d]
-        edge = _pick(forward, right, left)
-        sub = _build_subtree(value_and_grad, inv_mass, step_size, forward, d,
-                             edge, energy0, draws.leaf[:, d],
-                             max_delta_energy, active)
-        ok = ~(sub.turning | sub.diverging)
-        # biased progressive sampling: move to the new half with
-        # probability min(1, W_new / W_old)
-        accept = torch.exp(torch.clamp(sub.log_weight - log_weight, max=0.0))
-        take = (draws.accept[:, d] < accept) & ok
-        new_prop = _pick(take, (sub.z_prop, sub.pe_prop, sub.grad_prop), prop)
-        new_left = _pick(ok & ~forward, sub.right, left)
-        new_right = _pick(ok & forward, sub.right, right)
-        new_rho = torch.where(ok[:, None], rho + sub.rho, rho)
-        turning_total = _uturn(inv_mass, new_left.r, new_right.r, new_rho)
-        new = (new_left, new_right, new_prop,
-               torch.where(ok, torch.logaddexp(log_weight, sub.log_weight),
-                           log_weight),
-               new_rho, sub.turning | (ok & turning_total), sub.diverging,
-               sum_accept + sub.sum_accept, num_leaves + sub.num_leaves,
-               depth + 1)
-        old = (left, right, prop, log_weight, rho, turning, diverging,
-               sum_accept, num_leaves, depth)
-        (left, right, prop, log_weight, rho, turning, diverging, sum_accept,
-         num_leaves, depth) = _pick(active, new, old)
+    with profiling.span("nuts.transition"):
+        r0 = sample_momentum(draws.eps, inv_mass)
+        energy0 = pe + kinetic(inv_mass, r0)
+        start = IntegratorState(z=z, r=r0, pe=pe, grad=grad)
+        zeros = torch.zeros_like(pe)
+        left, right = start, start
+        prop = (z, pe, grad)
+        log_weight, rho = zeros, r0
+        turning, diverging = zeros.bool(), zeros.bool()
+        sum_accept, num_leaves = zeros, zeros
+        depth = torch.zeros(pe.shape, dtype=torch.int32, device=pe.device)
+        for d in range(cap):
+            # every chain still doubling is at depth d
+            active = ~(turning | diverging)
+            if not _any_on_host(active):
+                break
+            forward = draws.forward[:, d]
+            edge = _pick(forward, right, left)
+            sub = _build_subtree(value_and_grad, inv_mass, step_size,
+                                 forward, d, edge, energy0, draws.leaf[:, d],
+                                 max_delta_energy, active)
+            ok = ~(sub.turning | sub.diverging)
+            # biased progressive sampling: move to the new half with
+            # probability min(1, W_new / W_old)
+            accept = torch.exp(torch.clamp(sub.log_weight - log_weight,
+                                           max=0.0))
+            take = (draws.accept[:, d] < accept) & ok
+            new_prop = _pick(take, (sub.z_prop, sub.pe_prop, sub.grad_prop),
+                             prop)
+            new_left = _pick(ok & ~forward, sub.right, left)
+            new_right = _pick(ok & forward, sub.right, right)
+            new_rho = torch.where(ok[:, None], rho + sub.rho, rho)
+            turning_total = _uturn(inv_mass, new_left.r, new_right.r, new_rho)
+            new = (new_left, new_right, new_prop,
+                   torch.where(ok, torch.logaddexp(log_weight, sub.log_weight),
+                               log_weight),
+                   new_rho, sub.turning | (ok & turning_total), sub.diverging,
+                   sum_accept + sub.sum_accept, num_leaves + sub.num_leaves,
+                   depth + 1)
+            old = (left, right, prop, log_weight, rho, turning, diverging,
+                   sum_accept, num_leaves, depth)
+            (left, right, prop, log_weight, rho, turning, diverging,
+             sum_accept, num_leaves, depth) = _pick(active, new, old)
 
-    info = NUTSInfo(accept_prob=sum_accept / torch.clamp(num_leaves, min=1.0),
-                    num_steps=num_leaves, diverging=diverging,
-                    energy=prop[1], tree_depth=depth)
+        info = NUTSInfo(
+            accept_prob=sum_accept / torch.clamp(num_leaves, min=1.0),
+            num_steps=num_leaves, diverging=diverging, energy=prop[1],
+            tree_depth=depth)
     return prop[0], prop[1], prop[2], info

@@ -13,6 +13,11 @@ loop reads a value on the host; the loss trace stays on the device.
 
 Adam (:func:`adam`) is written on tensors in ``optax.adam``'s order of
 operations, so that a float64 trajectory equals optax's.
+
+Under :func:`lqg_tpu_torch.utils.profiling.tracing` every step of
+:func:`optimize` and of the ELBO fits records a span ``svi.step``, its card
+side marked by CUDA events, inside one span ``svi.optimize`` or ``svi.fit``
+a call, and counts ``svi.steps``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from lqg_tpu_torch.infer.capture import GraphedPotential
 from lqg_tpu_torch.infer.mcmc import Draws
 from lqg_tpu_torch.infer.models import ProbModel
+from lqg_tpu_torch.utils import profiling
 
 
 class GradientTransformation(NamedTuple):
@@ -129,11 +135,14 @@ def optimize(model: ProbModel, steps: int = 2000, step_size: float = 0.01,
     u = model.init_unconstrained().detach()[None]
     state = optimizer.init([u])
     losses = []
-    for _ in range(steps):
-        pe, grad = model.value_and_grad(u)
-        updates, state = optimizer.update([grad], state)
-        (u,) = apply_updates([u], updates)
-        losses.append(pe[0])
+    with profiling.span("svi.optimize"):
+        for _ in range(steps):
+            with profiling.span("svi.step", device=True):
+                profiling.count("svi.steps")
+                pe, grad = model.value_and_grad(u)
+                updates, state = optimizer.update([grad], state)
+                (u,) = apply_updates([u], updates)
+                losses.append(pe[0])
     losses = torch.stack(losses) if losses else u.new_zeros(0)
     u = u[0]
     if return_unconstrained:
@@ -208,20 +217,24 @@ def _fit(neg_elbo, params, optimizer, draws, steps, num_particles, D,
     gradients (the moments and the count still advance, as optax's do)."""
     state = optimizer.init(params)
     losses = []
-    for i in range(steps):
-        eps = draws.eps(i, num_particles, D, params[0].dtype)
-        with torch.enable_grad():
-            leaves = [p.detach().requires_grad_() for p in params]
-            loss = neg_elbo(leaves, eps)
-            grads = torch.autograd.grad(loss, leaves)
-        if skip_nonfinite:
-            ok = torch.isfinite(loss)
-            for g in grads:
-                ok = ok & torch.isfinite(g).all()
-            grads = [torch.where(ok, g, torch.zeros_like(g)) for g in grads]
-        updates, state = optimizer.update(grads, state)
-        params = apply_updates(params, updates)
-        losses.append(loss.detach())
+    with profiling.span("svi.fit"):
+        for i in range(steps):
+            with profiling.span("svi.step", device=True):
+                profiling.count("svi.steps")
+                eps = draws.eps(i, num_particles, D, params[0].dtype)
+                with torch.enable_grad():
+                    leaves = [p.detach().requires_grad_() for p in params]
+                    loss = neg_elbo(leaves, eps)
+                    grads = torch.autograd.grad(loss, leaves)
+                if skip_nonfinite:
+                    ok = torch.isfinite(loss)
+                    for g in grads:
+                        ok = ok & torch.isfinite(g).all()
+                    grads = [torch.where(ok, g, torch.zeros_like(g))
+                             for g in grads]
+                updates, state = optimizer.update(grads, state)
+                params = apply_updates(params, updates)
+                losses.append(loss.detach())
     losses = torch.stack(losses) if losses else params[0].new_zeros(0)
     return [p.detach() for p in params], losses
 

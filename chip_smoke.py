@@ -14,7 +14,8 @@ beside it.  Phases, each fatal on failure:
    x 20 trials at T=1000;
 5. the main path, ``BoundedActor(T=1000)`` -> ``simulate(n=20)`` ->
    ``log_likelihood(method="auto")``, with the kernels' launch counters
-   zeroed just before and read just after; the result against the float64
+   zeroed just before and read just after (K1, K3 and ``joint_fwd``, which
+   assembles the joint system, see phase 21); the result against the float64
    scan on the card, and the golden trajectories against their recorded
    log likelihood; its warm host-clock time, and the device's busy share
    of one call under ``torch.profiler``;
@@ -27,7 +28,7 @@ beside it.  Phases, each fatal on failure:
    ``shared_params_lqg_model(x, BoundedActor, ...)`` of 6 conditions x 20
    simulated trials at T=1008 (the data.mat shape), value and gradient for
    4 chains at once, with the counters zeroed just before and read just
-   after (K1-K4 once each); against the float64 model on the card (the
+   after (K1-K4 and the joint kernels once each, K5/K6 not at all); against the float64 model on the card (the
    scans); its warm host-clock time and the device's busy share, the
    kernels' device time in the path (``torch.profiler``), and the SM clock
    and power draw (``nvidia-smi``) sampled while it repeats;
@@ -48,11 +49,13 @@ beside it.  Phases, each fatal on failure:
     DelayedSubjectiveActor, ...)`` of 6 conditions x 20 simulated trials at
     T=1008, value and gradient for 4 chains at once, all counters zeroed
     just before (K5 and K6 once each, K1-K4 not at all: the gains at n=39
-    are the scans); against the float64 model on the card; warm host-clock
+    are the scans, and the joint system at j=65 the old assembly); against
+    the float64 model on the card; warm host-clock
     time and the device's busy share;
 11. the (3, 1, 2) instances of K1/K2 and the (5, 2) instances of K3/K4
     against their plain versions through ``SubjectiveActor``, and its value
-    and gradient through the entry points (K1-K4 once each); K3 (both
+    and gradient through the entry points (K1-K4 and the joint kernels
+    once each); K3 (both
     variants) and K4 timed at (5, 2);
 12. times from CUDA events (warmed, median of 7 runs of 20 launches; fewer
     for K5, K6 and the plain versions, which take ~0.5-3 s a call) beside
@@ -178,6 +181,21 @@ beside it.  Phases, each fatal on failure:
     its replay and eager times beside the scan route's
     (``method="scan"``), which ``auto`` took at these shapes before.
 
+21. the joint-system kernels (``csrc/joint.cu``: ``joint_fwd`` writes ``F``
+    and ``Q = G G^T`` in K3's layout from the gains, ``joint_bwd`` is its
+    adjoint), at the bounded actor's 6, 24 and 96 parameter sets (the
+    benchmark's MAP and vg1, NUTS and vg16 batches) and the subjective
+    actor's 6, T=1008, with the gains K1 gives: through ``joint_fq`` and
+    autograd, F, Q and the gradients of the gains and of the eight spec
+    matrices against the plain version (``gaussian.joint_system``, ``G
+    G^T``, the time axis moved) and its autograd in float64, within
+    JOINT_ULPS x (j + 8) float32 ulps of the largest entry of the same
+    computation on the terms' magnitudes; two launches the same bits; each
+    kernel's time (a CUDA graph of 20 calls between CUDA events) beside its
+    byte bound, and forward + backward through autograd beside the plain
+    version's.  The zoo's paths (phase 15) and the scope paths (phase 20)
+    count the joint kernels where an instance holds the model's dims.
+
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -286,16 +304,29 @@ SCOPE_LL = {(12, 2): ("delay", "BoundedActor", 2),
 SCOPE_PATHS = {
     "TemporalDelayModel(BoundedActor, delay=1)": (
         "BoundedActor", 1, "sigma_target", SHARED,
-        ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd"), (4, 1, 2), (8, 2)),
+        ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd", "joint_fwd",
+         "joint_bwd"), (4, 1, 2), (8, 2)),
     "TemporalDelayModel(BoundedActor, delay=2)": (
         "BoundedActor", 2, "sigma_target", SHARED,
-        ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd"), (6, 1, 2), (12, 2)),
+        ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd", "joint_fwd",
+         "joint_bwd"), (6, 1, 2), (12, 2)),
     "TemporalDelayModel(RelativeObservationBoundedActor, delay=3)": (
         "RelativeObservationBoundedActor", 3, "sigma",
         ["action_cost", "action_variability"],
         ("gains_fwd", "gains_bwd", "ll_blocked_fwd", "ll_blocked_bwd"),
         (8, 1, 1), (16, 2)),
 }
+# phase 21, the joint-system kernels (csrc/joint.cu): the bounded actor at
+# the benchmark's parameter sets (6: the MAP and vg1 cells, 24: NUTS, 96:
+# vg16) and the subjective actor at 6, T=1008; each output held to
+# JOINT_ULPS x (j + 8) float32 ulps of the largest entry of the same
+# computation on its terms' magnitudes (tests/test_torch_joint_kernel.py);
+# the adjoint timed with the outputs the fits need (L, K, V_d, W_d)
+JOINT_SHAPES = (("BoundedActor", 6), ("BoundedActor", 24),
+                ("BoundedActor", 96), ("SubjectiveActor", 6))
+JOINT_ULPS = 4
+JOINT_NEEDS = (True, True, False, False, False, True, True, False, False,
+               False)
 # K1 at the zoo's instances, as tests/test_pallas.py:60 holds the Pallas
 # kernel at n = 3-4 (PointMass's |L| reaches ~70)
 ZOO_GAINS_ATOL = 5e-4
@@ -466,18 +497,30 @@ def ptxas_summary(report: str):
     return rows
 
 
-def cuda_ms(fn, runs=7, launches=20):
+def cuda_ms(fn, runs=7, launches=20, graph=False):
     """Median over ``runs`` of the mean time of ``launches`` calls, from
-    CUDA events, after one warm-up call."""
+    CUDA events, after one warm-up call.  With ``graph`` the calls are
+    captured in one CUDA graph, which each run replays: the host's launches
+    are then out of the time (for kernels of microseconds)."""
     fn()
     torch.cuda.synchronize()
+    calls = lambda: [fn() for _ in range(launches)]
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            calls()
+        calls = captured.replay
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(launches):
-            fn()
+        calls()
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop) / launches)
@@ -962,6 +1005,7 @@ def zoo_paths(dev, card, names, all_counters, all_names):
     SignalDependentNoiseActor through the entry points at full width.
     Returns the launches of each path."""
     from lqg_tpu_torch import models
+    from lqg_tpu_torch.ops.kernels import joint as kj
     from lqg_tpu_torch.infer import shared_params_lqg_model
     from lqg_tpu_torch.infer.capture import (GraphedValueAndGrad,
                                              eager_value_and_grad)
@@ -1001,11 +1045,15 @@ def zoo_paths(dev, card, names, all_counters, all_names):
         torch.cuda.synchronize()
         fwd_s = time.perf_counter() - t0
         fwd = {k: fn.launches for k, fn in zip(all_names, all_counters)}
+        # the joint system by its kernels where an instance holds the dims
+        jn = int(kj.joint_fq_available(
+            kj.spec_dims(model.dynamics, model.actor), torch.float32))
         log(f"zoo forward path, {name}: simulate(n={LL_TRIALS}) + "
             f"log_likelihood at T={T} in {fwd_s:.3f} s (first call, host "
             f"clock); launches {fwd}")
         require(fwd["ll_fwd"] > 0 and (fwd["gains_fwd"] > 0) == k1
-                and not fwd["ll_blocked_fwd"],
+                and not fwd["ll_blocked_fwd"] and fwd["joint_fwd"] == jn
+                and not fwd["joint_bwd"],
                 f"zoo forward path, {name}: launches {fwd}")
         require(x.shape == (LL_TRIALS, T + 1, d) and ll.shape == (LL_TRIALS,)
                 and bool(torch.isfinite(x).all() and torch.isfinite(ll).all()),
@@ -1065,7 +1113,8 @@ def zoo_paths(dev, card, names, all_counters, all_names):
             f"value+grad in {grad_s:.3f} s (first call, host clock); "
             f"launches {bwd}")
         want = {"gains_fwd": int(k1), "gains_bwd": int(k1), "ll_fwd": 1,
-                "ll_bwd": 1, "ll_blocked_fwd": 0, "ll_blocked_bwd": 0}
+                "ll_bwd": 1, "ll_blocked_fwd": 0, "ll_blocked_bwd": 0,
+                "joint_fwd": jn, "joint_bwd": jn}
         require(bwd == want, f"zoo gradient path, {name}: launches {bwd}, "
                              f"expected {want}")
         require(pot.shape == (CHAINS,) and grad.shape == u.shape
@@ -1718,6 +1767,114 @@ def scope_paths(dev, card, all_counters, all_names):
         del pm, eager, scan_eager, pot, grad, pot64, grad64
         torch.cuda.empty_cache()
     return readings
+
+
+def joint_grads(fn, m, L, K, Fbar, Qbar, cast=lambda k, x: x):
+    """F, Q of ``fn`` (``joint_fq`` or its plain version) and the gradients
+    of ``<F, F-bar> + <Q, Q-bar>`` with respect to L, K and the eight spec
+    matrices, each input ``cast(name, x)`` and made a leaf of its own."""
+    leaf = lambda k, x: cast(k, x).detach().clone().requires_grad_()
+    dyn = m.dynamics._replace(**{k: leaf("d" + k, getattr(m.dynamics, k))
+                                 for k in "ABFVW"})
+    act = m.actor._replace(**{k: leaf("a" + k, getattr(m.actor, k))
+                              for k in "ABF"})
+    L, K = leaf("L", L), leaf("K", K)
+    leaves = [L, K, dyn.A, dyn.B, dyn.F, dyn.V, dyn.W, act.A, act.B, act.F]
+    F, Q = fn(dyn, act, L, K, L.shape[0])
+    grads = torch.autograd.grad(
+        (F * cast("F", Fbar)).sum() + (Q * cast("Q", Qbar)).sum(), leaves)
+    return [F.detach(), Q.detach(), *grads]
+
+
+def joint_magnitudes(k, x):
+    """The inputs of the tolerance's bound: absolute values, the actor's F
+    negated (it enters the joint system only with a minus sign, so that
+    every term of each output and gradient then adds with one sign)."""
+    return -x.double().abs() if k == "aF" else x.double().abs()
+
+
+def joint_kernels(dev, card):
+    """Phase 21: ``joint_fwd`` and ``joint_bwd`` through ``joint_fq`` and
+    autograd against the plain version (the assembly they replace:
+    ``gaussian.joint_system``, ``G G^T``, the time axis moved) and its
+    autograd in float64 at JOINT_SHAPES, with the gains K1 gives; two
+    launches the same bits; each kernel timed (20 calls in a CUDA graph,
+    CUDA events) beside its byte bound and the plain version's forward and
+    forward + backward on the card.  Returns {shape: readings}."""
+    from lqg_tpu_torch import models
+    from lqg_tpu_torch.ops.kernels import joint as kj
+
+    rows = {}
+    for cls_name, P_ in JOINT_SHAPES:
+        g = torch.Generator().manual_seed(P_)
+        cost = torch.exp(torch.randn(P_, generator=g) * 0.5).to(dev)
+        noise = (6.0 * torch.exp(torch.randn(P_, generator=g) * 0.3)).to(dev)
+        m = getattr(models, cls_name)(T=T_FIT, device=dev, action_cost=cost,
+                                      sigma_cursor=noise)
+        gains, K = m.gains()
+        L, K = gains.L.contiguous(), K.contiguous()
+        j = m.xdim + m.bdim
+        Fbar, Qbar = (torch.randn((P_, T_FIT, j, j), generator=g).to(dev)
+                      for _ in range(2))
+        got = joint_grads(kj.joint_fq, m, L, K, Fbar, Qbar)
+        want = joint_grads(kj.joint_fq_reference, m, L, K, Fbar, Qbar,
+                           lambda k, x: x.double())
+        bound_ = joint_grads(kj.joint_fq_reference, m, L, K, Fbar, Qbar,
+                             joint_magnitudes)
+        ulps = JOINT_ULPS * (j + 8) * float(np.finfo(np.float32).eps)
+        errs = [float((a.double() - w).abs().max()) / float(b.abs().max())
+                for a, w, b in zip(got, want, bound_)]
+        shape = f"{cls_name} (j={j}) P={P_} T={T_FIT}"
+        require(max(errs) <= ulps and bool(torch.equal(got[1], got[1].mT)),
+                f"joint kernels at {shape} vs plain float64: errors "
+                f"{errs} of the bound's largest entry > {ulps:.3e}")
+        mats = kj._spec_mats(m.dynamics, m.actor)
+        runs = [kj.joint_fwd(mats, L, K) + kj.joint_fq_vjp(
+            mats, L, K, Fbar, Qbar) for _ in range(2)]
+        same = all(bool(torch.equal(a, b)) for a, b in zip(*runs))
+        require(same, f"joint kernels at {shape}: two launches differ")
+        del runs
+        # the benchmark's fits differentiate through V_d and W_d alone
+        VW = [x.detach().clone().requires_grad_()
+              for x in (m.dynamics.V, m.dynamics.W)]
+        dyn = m.dynamics._replace(V=VW[0], W=VW[1])
+
+        def both(fn):
+            Lg, Kg = L.clone().requires_grad_(), K.clone().requires_grad_()
+            F, Q = fn(dyn, m.actor, Lg, Kg, T_FIT)
+            torch.autograd.grad((F * Fbar).sum() + (Q * Qbar).sum(),
+                                [Lg, Kg] + VW)
+
+        row = {
+            "fwd_ms": cuda_ms(lambda: kj.joint_fwd(mats, L, K), graph=True),
+            "bwd_ms": cuda_ms(lambda: kj.joint_fq_vjp(
+                mats, L, K, Fbar, Qbar, JOINT_NEEDS), graph=True),
+            "fwd_bwd_ms": cuda_ms(lambda: both(kj.joint_fq), graph=True),
+            "plain_fwd_ms": cuda_ms(lambda: kj.joint_fq_reference(
+                m.dynamics, m.actor, L, K, T_FIT), graph=True),
+            "plain_fwd_bwd_ms": cuda_ms(lambda: both(kj.joint_fq_reference),
+                                        graph=True)}
+        gains_bytes = 4 * (L.numel() + K.numel())
+        out_bytes = 4 * 2 * P_ * T_FIT * j * j
+        row["fwd_bound_ms"] = (gains_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        row["bwd_bound_ms"] = ((2 * gains_bytes + out_bytes)
+                               / HBM_BYTES_PER_S * 1e3)
+        row["max_err_of_bound"] = max(errs)
+        row["same_bits"] = same
+        rows[shape] = row
+        log(f"[{card}] joint kernels at {shape}: vs plain float64 errors "
+            f"{max(errs):.3e} of the bound's largest entry (tolerance "
+            f"{ulps:.3e}), two launches the same bits; joint_fwd "
+            f"{row['fwd_ms'] * 1e3:.1f} us (bound {row['fwd_bound_ms'] * 1e3:.1f}"
+            f"), joint_bwd {row['bwd_ms'] * 1e3:.1f} us (bound "
+            f"{row['bwd_bound_ms'] * 1e3:.1f}); through autograd forward + "
+            f"backward {row['fwd_bwd_ms'] * 1e3:.1f} us against the plain "
+            f"version's {row['plain_fwd_bwd_ms'] * 1e3:.1f} us (forward "
+            f"{row['plain_fwd_ms'] * 1e3:.1f} us); CUDA events over a graph "
+            f"of 20 calls")
+        del got, want, bound_
+        torch.cuda.empty_cache()
+    return rows
 
 
 def fit_batches(dev, card, x_fit):
@@ -2994,6 +3151,7 @@ def main() -> int:
         conditioned_log_likelihood_blocked_vjp,
         conditioned_log_likelihood_blocked_vjp_reference, ll_blocked_fwd)
     from lqg_tpu_torch.ops.kernels import likelihood_blocked as kb
+    from lqg_tpu_torch.ops.kernels import joint as kj
     from lqg_tpu_torch.ops import kalman, riccati
     from lqg_tpu_torch.ops.linalg import mT
     from lqg_tpu_torch.utils.profiling import kernel_counts
@@ -3002,8 +3160,12 @@ def main() -> int:
                 conditioned_log_likelihood_vjp)
     names = ("gains_fwd", "gains_bwd", "ll_fwd", "ll_bwd")
     all_counters = counters + (conditioned_log_likelihood_blocked,
-                               conditioned_log_likelihood_blocked_vjp)
-    all_names = names + ("ll_blocked_fwd", "ll_blocked_bwd")
+                               conditioned_log_likelihood_blocked_vjp,
+                               kj.joint_fq, kj.joint_fq_vjp)
+    all_names = names + ("ll_blocked_fwd", "ll_blocked_bwd", "joint_fwd",
+                         "joint_bwd")
+    # the kernels the profiled paths name: K1-K4 and the joint system's
+    profiled = names + ("joint_fwd", "joint_bwd")
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -3017,7 +3179,8 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    reports = nvcc.build_all(["gains", "likelihood", "likelihood_blocked"])
+    reports = nvcc.build_all(["gains", "likelihood", "likelihood_blocked",
+                              "joint"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for row in ptxas_summary(report):
@@ -3074,6 +3237,7 @@ def main() -> int:
     fused_gains.launches = 0
     fused_gains.design_launches = {"thread": 0, "block": 0}
     conditioned_log_likelihood_fused.launches = 0
+    kj.joint_fq.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = BoundedActor(T=T, device=dev)
@@ -3083,7 +3247,8 @@ def main() -> int:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {"gains_fwd_block": fused_gains.design_launches["block"],
-                "ll_fwd": conditioned_log_likelihood_fused.launches}
+                "ll_fwd": conditioned_log_likelihood_fused.launches,
+                "joint_fwd": kj.joint_fq.launches}
     require(fused_gains.launches == launches["gains_fwd_block"],
             f"main path: K1 in its thread design at one parameter set, "
             f"{fused_gains.design_launches}")
@@ -3115,12 +3280,14 @@ def main() -> int:
     log(f"main path warm, host clock: median {statistics.median(warm):.4f} s "
         f"of {[round(w, 4) for w in warm]}")
     wall, busy, n_events, named = profile_ms(main_path, ("gains_fwd",
-                                                         "ll_fwd"))
+                                                         "ll_fwd",
+                                                         "joint_fwd"))
     if n_events:
         log(f"main path under torch.profiler: wall {wall:.1f} ms, device busy "
             f"{busy:.2f} ms ({100 * busy / wall:.2f}% of wall) over "
             f"{n_events} device events; gains_fwd {named['gains_fwd']:.3f} "
-            f"ms, ll_fwd {named['ll_fwd']:.3f} ms")
+            f"ms, ll_fwd {named['ll_fwd']:.3f} ms, joint_fwd "
+            f"{named['joint_fwd']:.3f} ms")
     else:
         log("main path under torch.profiler: no device events recorded; "
             "device busy share not measured")
@@ -3260,21 +3427,23 @@ def main() -> int:
         pot = m.potential(uu)
         return pot, torch.autograd.grad(pot.sum(), uu)[0]
 
-    for fn in counters:
+    for fn in all_counters:
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pot, grad = value_and_grad(pmodel, u)
     torch.cuda.synchronize()
     grad_s = time.perf_counter() - t0
-    grad_launches = {k: fn.launches for k, fn in zip(names, counters)}
+    grad_launches = {k: fn.launches for k, fn in zip(all_names, all_counters)}
     grad_design = fused_gains.design
     log(f"gradient path: {CHAINS} chains x {CONDITIONS} conditions x "
         f"{LL_TRIALS} trials at T={T_FIT}, D={u.shape[-1]}: value+grad in "
         f"{grad_s:.3f} s (first call, host clock); launches {grad_launches} "
         f"(K1 in its {grad_design} design)")
-    require(all(v == 1 for v in grad_launches.values()),
-            f"gradient path: each kernel once, got {grad_launches}")
+    require(grad_launches == {k: int(not k.startswith("ll_blocked"))
+                              for k in all_names},
+            f"gradient path: K1-K4 and the joint kernels once each, got "
+            f"{grad_launches}")
     require(pot.shape == (CHAINS,) and grad.shape == u.shape,
             "gradient path: wrong shapes")
     require(bool(torch.isfinite(pot).all() and torch.isfinite(grad).all()),
@@ -3309,7 +3478,7 @@ def main() -> int:
     log(f"gradient path warm, host clock: median "
         f"{statistics.median(warm) * 1e3:.3f} ms of "
         f"{[round(w * 1e3, 3) for w in warm]}")
-    wall, busy, n_events, named = profile_ms(grad_path, names)
+    wall, busy, n_events, named = profile_ms(grad_path, profiled)
     k2_in_path = named["gains_bwd"] if n_events else None
     if n_events:
         log(f"gradient path under torch.profiler: wall {wall:.2f} ms, device "
@@ -3515,9 +3684,10 @@ def main() -> int:
         f"; cluster sizes {dgrad_cluster}")
     require(dgrad_launches["ll_blocked_fwd"] == 1
             and dgrad_launches["ll_blocked_bwd"] == 1
-            and not any(dgrad_launches[k] for k in names),
-            f"gradient delay path: K5 and K6 once each and the scans for the "
-            f"gains, got {dgrad_launches}")
+            and not any(dgrad_launches[k] for k in profiled),
+            f"gradient delay path: K5 and K6 once each, the scans for the "
+            f"gains and the old joint assembly (j > 12), got "
+            f"{dgrad_launches}")
     require(pot.shape == (CHAINS,) and grad.shape == ud.shape,
             "gradient delay path: wrong shapes")
     require(bool(torch.isfinite(pot).all() and torch.isfinite(grad).all()),
@@ -3634,10 +3804,10 @@ def main() -> int:
     (g_s,) = torch.autograd.grad(ll_s.sum(), svn_leaf)
     torch.cuda.synchronize()
     inst_launches = {k: fn.launches for k, fn in zip(all_names, all_counters)}
-    require(all(inst_launches[k] == 1 for k in names)
+    require(all(inst_launches[k] == 1 for k in profiled)
             and bool(torch.isfinite(g_s).all()),
-            f"SubjectiveActor value+grad: K1-K4 once each, got "
-            f"{inst_launches}")
+            f"SubjectiveActor value+grad: K1-K4 and the joint kernels once "
+            f"each, got {inst_launches}")
     log(f"instances through SubjectiveActor at P={P3}, n={LL_TRIALS}, T={T}: "
         f"max abs err vs plain K1 (3, 1, 2) {i1_err:.3e}, K2 {i2_err:.3e}, "
         f"K3 (5, 2) {i3_err:.3e}, K4 {i4_err:.3e}; value+grad launches "
@@ -3826,11 +3996,13 @@ def main() -> int:
         replay_wall = host_ms(lambda: graphed(u), 20)
         replay_events = cuda_ms(lambda: graphed(u))
         replay_ms[what.split(":")[0]] = replay_events
-        wall, busy, n_events, named = profile_ms(lambda: graphed(u), names)
+        wall, busy, n_events, named = profile_ms(lambda: graphed(u),
+                                                 profiled)
         # three replays a profiled session, the most of three sessions: a
         # replay runs every node of its graph, and the profiler now and then
         # drops a kernel's record
-        seen = kernel_counts(lambda: [graphed(u) for _ in range(3)], names)
+        seen = kernel_counts(lambda: [graphed(u) for _ in range(3)],
+                             profiled)
         require(all(v >= 1 for v in seen.values()),
                 f"graph replay, {what}: kernels in 3 replays {seen}")
         log(f"[{card}] graph, {what}, {CHAINS} chains, D={u.shape[-1]}: "
@@ -3919,7 +4091,7 @@ def main() -> int:
 
     log(f"phases 1-14: {time.perf_counter() - t_start:.1f} s")
     # 15. the rest of the zoo, through the entry points a user calls
-    zoo_launches = zoo_paths(dev, card, names, all_counters, all_names)
+    zoo_launches = zoo_paths(dev, card, profiled, all_counters, all_names)
     log(f"phases 1-15: {time.perf_counter() - t_start:.1f} s")
     # 16. the zoo's instances of K1-K4 against their plain versions; K1's
     # block design against its thread design at the zoo's instances, the
@@ -4093,6 +4265,32 @@ def main() -> int:
             for path, r in scope_readings.items()}
     log(f"scope paths (phase 20): {json.dumps(scope_readings)}")
     log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    # 21. the joint-system kernels against the assembly they replace
+    t0 = time.perf_counter()
+    joint_rows = joint_kernels(dev, card)
+    main_shape = f"BoundedActor (j=4) P=96 T={T_FIT}"
+    for kernel, key, plain in (("joint_fwd", "fwd", "plain_fwd_ms"),
+                               ("joint_bwd", "bwd", None)):
+        main_row = joint_rows[main_shape]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": "lqg_tpu_torch/csrc/joint.cu",
+            "replaces": "none (lqg_tpu/ops/gaussian.py:joint_system, fused "
+                        "by XLA)",
+            "launches_per_value_and_grad": grad_launches[kernel],
+            "max_err_of_bound": main_row["max_err_of_bound"],
+            "shape": main_shape, "ms": main_row[f"{key}_ms"],
+            "plain_ms": main_row[plain] if plain else None,
+            "bound_ms": main_row[f"{key}_bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "ms_by_shape": {k: r[f"{key}_ms"] for k, r in joint_rows.items()},
+            "bounds_by_shape": {k: r[f"{key}_bound_ms"]
+                                for k, r in joint_rows.items()},
+            "fwd_bwd_ms_by_shape": {k: r["fwd_bwd_ms"]
+                                    for k, r in joint_rows.items()},
+            "plain_fwd_bwd_ms_by_shape": {k: r["plain_fwd_bwd_ms"]
+                                          for k, r in joint_rows.items()}})
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
     log(f"zoo launches (phase 15): {json.dumps(zoo_launches)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -14,6 +14,11 @@ in a ``torch.autograd.Function``.
   ``lqg_tpu/ops/pallas/likelihood_blocked.py:_ll_blocked_kernel``), and K6,
   its adjoint (replaces ``likelihood_blocked.py:_ll_blocked_bwd_kernel``).
 
+* :mod:`~lqg_tpu_torch.ops.kernels.joint`: the joint (state, belief)
+  system ``F``, ``Q = G G^T`` from the gains in the layout K3 reads, and
+  its adjoint (no TPU counterpart: ``lqg_tpu`` leaves
+  ``ops/gaussian.py:joint_system`` to XLA, which fuses it).
+
 Every function of the JAX package that reaches ``pl.pallas_call`` has its
 counterpart here.
 """

@@ -28,8 +28,9 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Parts of each source built in parts; the instances of each part are
 # listed in the source's dispatch and in its module's PART table
-# (ops/kernels/gains.py, ops/kernels/likelihood.py).  Other sources have one.
-PARTS = {"gains": 5, "likelihood": 3}
+# (ops/kernels/gains.py, ops/kernels/likelihood.py, ops/kernels/joint.py).
+# Other sources have one.
+PARTS = {"gains": 5, "likelihood": 3, "joint": 2}
 
 _loaded: Dict[Tuple[str, int], ctypes.CDLL] = {}
 

@@ -12,7 +12,9 @@ kernel's ``torch.autograd.Function`` carries its backward kernel (K2, K4,
 K6).  For the likelihood that is the fused kernel where the joint dims fit
 it, else the blocked kernel (the delay-register models, joint dim 13 to
 128), else the scan.  ``method="fused"``, ``"blocked"`` or ``"scan"``
-forces a path.
+forces a path.  On the card the kernels' route also assembles the joint
+system with hand-written kernels (:mod:`~lqg_tpu_torch.ops.kernels.joint`)
+where both specs are stationary and ``j <= 12``.
 
 A stationary spec may carry one leading parameter-set axis ``P`` (the
 tracking models broadcast tensor parameters over it): ``gains`` then
@@ -32,6 +34,8 @@ from lqg_tpu_torch.spec import LQGSpec
 from lqg_tpu_torch.ops import riccati, kalman, gaussian
 from lqg_tpu_torch.ops.dare import steady_state
 from lqg_tpu_torch.ops.kernels.gains import fused_gains, fused_gains_available
+from lqg_tpu_torch.ops.kernels.joint import (joint_fq, joint_fq_available,
+                                             spec_dims)
 from lqg_tpu_torch.ops.kernels.likelihood import (
     conditioned_log_likelihood_fused, fused_ll_available)
 from lqg_tpu_torch.ops.kernels.likelihood_blocked import (
@@ -144,6 +148,17 @@ class System:
                 and x.dtype == F.dtype
                 and blocked_ll_available(F.shape[-1], x.shape[-1],
                                          x.shape[-3], F.dtype))
+
+    def _joint_fq_ok(self, L: torch.Tensor, K: torch.Tensor) -> bool:
+        """Does the likelihood's kernel route assemble the joint system
+        with :func:`~lqg_tpu_torch.ops.kernels.joint.joint_fq` (its kernels),
+        for the gains ``L``, ``K``: on the card, float32, both specs
+        stationary, ``j <= 12`` and dims an instance holds?"""
+        return (L.device.type == "cuda" and L.dtype == K.dtype == self.dtype
+                and not _stacked(self.dynamics) and not _stacked(self.actor)
+                and L.dim() <= 4 and len(self.batch_shape) <= 1
+                and joint_fq_available(spec_dims(self.dynamics, self.actor),
+                                       self.dtype))
 
     def gains(self, Sigma0=None, method: str = "auto"):
         """Control gains and Kalman gains from the actor's internal model.
@@ -354,20 +369,36 @@ class System:
         # trajectories shared by the parameter sets: autograd sums along P
         x = x.expand(torch.broadcast_shapes(self.batch_shape, x.shape[:-3])
                      + x.shape[-3:])
-        joint = self._joint(Sigma0, gains_method)
+        gains, K = self.gains(Sigma0, method=gains_method)
+        # parameter-set axes of the joint system; unbatched: a batch of one
+        lead = torch.broadcast_shapes(gains.L.shape[1:-2], K.shape[1:-2],
+                                      self.batch_shape)
+        one = not lead
         if method == "auto":
-            method = ("fused" if self._fused_ll_ok(joint.F, x)
-                      else "blocked" if self._blocked_ll_ok(joint.F, x)
+            j = self.xdim + self.bdim
+            # the joint transitions' shape, for the rules, before assembly
+            F_shape = torch.empty((self.horizon,) + lead + (j, j),
+                                  dtype=gains.L.dtype, device="meta")
+            method = ("fused" if self._fused_ll_ok(F_shape, x)
+                      else "blocked" if self._blocked_ll_ok(F_shape, x)
                       else "scan")
         if method in ("fused", "blocked"):
             kernel = (conditioned_log_likelihood_fused if method == "fused"
                       else conditioned_log_likelihood_blocked)
-            one = joint.F.dim() == 3  # unbatched: a batch of one
-            F = joint.F[:, None] if one else joint.F
-            G = joint.G[:, None] if one else joint.G
-            F, Q = (torch.movedim(M, 0, 1) for M in (F, G @ mT(G)))
+            if self._joint_fq_ok(gains.L, K):
+                lift = lambda g: g[:, None] if g.dim() == 3 else g  # set axis
+                F, Q = joint_fq(self.dynamics, self.actor, lift(gains.L),
+                                lift(K), self.horizon)
+            else:
+                joint = gaussian.joint_system(self.dynamics, self.actor,
+                                              gains.L, K, self.horizon)
+                F = joint.F[:, None] if one else joint.F
+                G = joint.G[:, None] if one else joint.G
+                F, Q = (torch.movedim(M, 0, 1) for M in (F, G @ mT(G)))
             ll = kernel(F, Q, x[None] if one else x)
             return ll[0] if one else ll
+        joint = gaussian.joint_system(self.dynamics, self.actor, gains.L, K,
+                                      self.horizon)
         if method == "pscan":
             from lqg_tpu_torch.parallel.pscan import trial_log_likelihood_assoc
 
